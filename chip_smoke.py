@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which ends the run with a non-zero exit when it fails:
+  1. print the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
+     per kernel, in parallel) and print ptxas' register report;
+  3. hold each kernel against its plain PyTorch version, run in f32 on the
+     same inputs, at the serving path's shapes: f32 at 2e-5 with TF32 off;
+     bf16 at atol 4e-3 / rtol 1.6e-2 per element and 1e-2 relative per
+     query row; with a ragged length, Tq != Tk, a query row with no
+     admissible key, a sliding window, ring positions and empty-slot marks;
+  4. serve: AGH plans the paper's default instance, `to_deployment` turns
+     the plan into pairs, and one full-width bf16 qwen2-0.5b engine (random
+     weights from --seed) serves 8 requests of 600-999 prompt tokens
+     (left-padded to 999, not a multiple of any kernel tile) for 32 new
+     tokens each; the kernels' launch counts over that run must be > 0;
+  5. run one full-width prefill + 4 decode steps on the kernels and on
+     the plain versions, and compare the logits: in f32 at atol = rtol =
+     1e-3; in bf16 (same bf16-rounded weights) at 5e-2 relative per logit
+     row, and no more than twice as far from the f32 logits as the plain
+     path;
+  6. time each kernel at the serving shapes with CUDA events, beside its
+     plain version, `F.scaled_dot_product_attention` (a yardstick the port
+     never calls) and the least time the card could take (its bound);
+  7. trace one more served batch with torch.profiler: the device's busy
+     share of the batch's wall time and the kernels that take the most.
+
+The line before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the run fails.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+ARCH = "qwen2-0.5b"
+PROMPT_LENS = [600 + 57 * i for i in range(8)]     # 600 .. 999
+NEW_TOKENS = 32
+# Kernels are held against their plain versions run in f32 on the same
+# inputs (bf16 inputs upcast exactly). f32 kernels: IEEE f32 on both sides,
+# 2e-5. bf16 kernels round the output to bf16 (2**-9 relative) and the
+# flash kernel also rounds P to bf16 before P V, so per element
+# atol 4e-3 / rtol 1.6e-2 (four bf16 roundings), and per query row
+# |got - want|_2 / |want|_2 <= 1e-2. The roundings give a few 1e-3 there;
+# phase 3 shows that the row bound rejects two faults the per-element one
+# lets through or barely catches (`criterion_rejects`).
+F32_TOL = 2e-5
+BF16_ATOL, BF16_RTOL, BF16_ROW_REL = 4e-3, 1.6e-2, 1e-2
+E2E_TOL = 1e-3          # f32 logits, kernels vs plain, atol = rtol
+# bf16 logits, kernels vs plain: largest |got - want|_2 / |want|_2 over the
+# logit rows; and the kernel path may sit at most twice as far from the f32
+# logits (same bf16-rounded weights) as the plain path does, plus E2E_TOL.
+E2E_BF16_REL = 5e-2
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def model_layout(gen, B, T, heads, hd, dtype, dev):
+    """A [B,T,heads,hd] tensor, handed over as its [B,heads,T,hd] view."""
+    x = torch.randn((B, T, heads, hd), generator=gen, device=dev)
+    return x.to(dtype).transpose(1, 2)
+
+
+def time_ms(fns, n: int = 48) -> tuple[float, float]:
+    """Per-call time of `fns` (called in turn, each on its own inputs, so
+    that together they exceed the 50 MB L2 as the layer stack does):
+    (device ms, from one CUDA-graph replay of n calls, so host launch cost
+    is left out; eager ms, the same n calls launched from Python)."""
+    calls = [fns[i % len(fns)] for i in range(n)]
+    for fn in fns:
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for fn in calls:
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    eager = start.elapsed_time(end) / n
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for fn in calls:
+            fn()
+    graph.replay()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, eager
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(name, got, want, tol) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    print(f"  {name}: max_abs_err={err:.3e} tol={tol:g} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def row_rel(got, want) -> float:
+    """Largest |got - want|_2 / |want|_2 over the last axis's rows."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+def check_kernel(name, got, want) -> tuple[float, float]:
+    """A kernel's output against its plain version run in f32 on the same
+    inputs, at the tolerances above. Returns (max abs error, largest row
+    relative error)."""
+    if got.dtype == torch.float32:
+        return check_close(name, got, want, F32_TOL), row_rel(got, want)
+    err = (got.float() - want).abs().max().item()
+    rel = row_rel(got, want)
+    ok = (torch.allclose(got.float(), want, atol=BF16_ATOL, rtol=BF16_RTOL)
+          and rel <= BF16_ROW_REL)
+    print(f"  {name}: max_abs_err={err:.3e} (atol {BF16_ATOL:g} rtol "
+          f"{BF16_RTOL:g}) max_row_rel_err={rel:.3e} (tol "
+          f"{BF16_ROW_REL:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err, rel
+
+
+def f32(*xs):
+    return tuple(x.float() for x in xs)
+
+
+def criterion_rejects(q, k, v, pos, attention_ref) -> None:
+    """The bf16 row bound must reject two faults a flash kernel could
+    have, made here on the plain version at the served shape and rounded
+    to bf16: (a) the zero-padded keys past Tk of the last 64-key tile left
+    in the softmax sum (logit 0) of the rows that reach that tile; (b) one
+    64-key tile, keys 448..511, dropped."""
+    T, tile = k.shape[2], 64
+    want = attention_ref(*f32(q, k, v), pos, pos)
+    pad, last = (-T) % tile, (T - 1) // tile * tile
+    z = k.new_zeros(k.shape[:2] + (pad, k.shape[3]))
+    faults = {
+        f"{pad} padded keys in the last tile's softmax": attention_ref(
+            *f32(q, torch.cat([k, z], 2), torch.cat([v, z], 2)), pos,
+            torch.cat([pos, pos.new_full((pad,), last)])),
+        "keys 448..511 dropped": attention_ref(
+            *f32(q, k, v), pos,
+            torch.where((pos >= 448) & (pos < 512), 2 ** 30, pos)),
+    }
+    for name, bad in faults.items():
+        bad = bad.to(q.dtype)
+        rel = row_rel(bad, want)
+        elem = torch.allclose(bad.float(), want, atol=BF16_ATOL,
+                              rtol=BF16_RTOL)
+        print(f"  bf16 bound against a fault ({name}): max_row_rel_err="
+              f"{rel:.3e}, per-element bound "
+              f"{'passes it' if elem else 'rejects it'}, row bound "
+              f"{'rejects it' if rel > BF16_ROW_REL else 'PASSES IT'}",
+              flush=True)
+        if rel <= BF16_ROW_REL:
+            fail(f"the bf16 row bound does not reject a fault: {name}")
+
+
+def check_kernels(dev, seed):
+    """Phase 3. Returns the main-path bf16 inputs and each kernel's
+    largest error at the main path's shapes."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    B, H, KV, hd = len(PROMPT_LENS), cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    T, S = max(PROMPT_LENS), max(PROMPT_LENS) + NEW_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # Per kernel and dtype: (max abs error, largest row relative error)
+    # over the checks at the main path's shapes.
+    errs = {(n, d): (0.0, 0.0)
+            for n in ("flash_attention", "decode_attention")
+            for d in ("float32", "bfloat16")}
+    main = {}
+
+    def keep(key, err):
+        errs[key] = tuple(max(a, b) for a, b in zip(errs[key], err))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        q, k, v = (model_layout(gen, B, T, h, hd, dtype, dev)
+                   for h in (H, KV, KV))
+        pos = torch.arange(T, dtype=torch.int32, device=dev)
+        for window in (0, 256):
+            err = check_kernel(
+                f"flash_attention {tag} B={B} H={H} KV={KV} T={T} hd={hd} "
+                f"window={window}", fk.flash_attention(q, k, v, pos, pos,
+                                                       window),
+                attention_ref(*f32(q, k, v), pos, pos, window))
+            if window == 0:
+                keep(("flash_attention", tag), err)
+        # The last 77 queries over all T keys (Tq != Tk, both ragged); one
+        # query precedes every key, so its row takes the uniform average.
+        q_pos = torch.arange(T - 77, T, dtype=torch.int32, device=dev)
+        q_pos[3] = -5
+        for window in (0, 50):
+            check_kernel(
+                f"flash_attention {tag} Tq=77 of Tk={T}, a row with no "
+                f"admissible key, window={window}",
+                fk.flash_attention(q[:, :, -77:], k, v, q_pos, pos, window),
+                attention_ref(*f32(q[:, :, -77:], k, v), q_pos, pos, window))
+        if dtype == torch.bfloat16:
+            main["flash"] = (q, k, v, pos)
+            criterion_rejects(q, k, v, pos, attention_ref)
+
+        qd = torch.randn((B, KV, H // KV, hd), generator=gen,
+                         device=dev).to(dtype)
+        kc, vc = (model_layout(gen, B, S, KV, hd, dtype, dev)
+                  for _ in range(2))
+        p = T + NEW_TOKENS // 2
+        slots = torch.arange(S, device=dev)
+        k_pos = torch.where(slots <= p, slots, 2 ** 30).to(torch.int32)
+        keep(("decode_attention", tag), check_kernel(
+            f"decode_attention {tag} B={B} KV={KV} G={H // KV} S={S} "
+            f"hd={hd} pos={p}", dk.decode_attention(qd, kc, vc, k_pos, p),
+            decode_attention_ref(*f32(qd, kc, vc), k_pos, p)))
+        last = 2500                          # ring slot -> position map
+        ring = last - ((last - slots) % S)
+        ring[::9] = 2 ** 30                  # and some empty slots
+        ring = ring.to(torch.int32)
+        check_kernel(f"decode_attention {tag} ring+empty slots",
+                     dk.decode_attention(qd, kc, vc, ring, last),
+                     decode_attention_ref(*f32(qd, kc, vc), ring, last))
+        if dtype == torch.bfloat16:
+            main["decode"] = (qd, kc, vc, k_pos, p)
+    return main, errs
+
+
+def serve_main_path(dev, seed):
+    """Phase 4: plan -> deploy -> serve through the launcher's functions.
+    Returns the serving stats and the kernels' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    inst, sol, spec = serve.plan_fleet(seed)
+    print(f"  AGH plan in {time.perf_counter() - t0:.2f}s: "
+          f"{len(spec.pairs)} pairs "
+          f"{[(p.model, p.tier, p.tp, p.pp) for p in spec.pairs]}")
+    if not spec.pairs:
+        fail("the plan deploys no pair")
+    cfg = get_config(ARCH)
+    T = max(PROMPT_LENS)
+    engine = serve.build_engine(cfg, dev, seed, max_len=T + NEW_TOKENS,
+                                max_batch=len(PROMPT_LENS))
+    # Warm-up batch (library handles, allocator); not counted.
+    serve.serve_batch(engine, serve.make_requests([16, 9], 2,
+                                                  cfg.vocab_size, seed + 1))
+    reqs = serve.make_requests(PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)
+    flash_attention.launches = decode_attention.launches = 0
+    stats = serve.serve_batch(engine, reqs)
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    print(f"  kernel launches in that run: {launches}")
+    # The same batch twice more, for the spread of the host-clock numbers.
+    runs = [stats] + [serve.serve_batch(engine, serve.make_requests(
+        PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)) for _ in range(2)]
+    print(f"  served {len(reqs)} requests, prompts {min(PROMPT_LENS)}-{T} "
+          f"(padded to {T}), {NEW_TOKENS} new tokens each, on {cfg.name} "
+          f"bf16, 3 runs: TTFT ms "
+          f"{[round(r['ttft_s'] * 1e3, 2) for r in runs]}, tok/s "
+          f"{[round(r['tok_per_s'], 1) for r in runs]}, wall s "
+          f"{[round(r['wall_s'], 3) for r in runs]}")
+    for r in reqs:
+        if len(r.output) != NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            fail(f"request {r.rid} got {len(r.output)} tokens {r.output}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the served batch never launched {name}")
+    return engine, reqs, launches
+
+
+def trace_batch(engine, reqs):
+    """Phase 7: the served batch again, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    fresh = [dataclasses.replace(r, output=[], first_token_s=None,
+                                 done_s=None) for r in reqs]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = serve.serve_batch(engine, fresh)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if not rows:
+        print("  device trace: not measured (the profiler saw no CUDA "
+              "kernels)")
+        return
+    print(f"  traced batch wall {stats['wall_s'] * 1e3:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / (stats['wall_s'] * 1e3):.1f}"
+          f"% busy), {sum(e.count for e in rows)} kernel launches")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def compare_paths(dev, seed):
+    """Phase 5: full-width prefill + 4 decode steps, kernels vs plain, in
+    f32 and in bf16 on the same bf16-rounded weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+
+    cfg16 = get_config(ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    params16 = decoder.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg16)
+    params32 = _tree_map(lambda x: x.float(), params16)
+    B, T, n_dec = 2, max(PROMPT_LENS), 4
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    toks = torch.randint(1, cfg16.vocab_size, (B, T + n_dec), generator=gen,
+                         device=dev)
+
+    def run(params, cfg, use_kernels):
+        with torch.inference_mode():
+            lg, cache = decoder.prefill(params, cfg, toks[:, :T],
+                                        max_len=T + n_dec,
+                                        use_kernels=use_kernels)
+            out = [lg]
+            for t in range(T, T + n_dec):
+                lg, cache = decoder.decode_step(params, cfg, cache,
+                                                toks[:, t:t + 1], t,
+                                                use_kernels=use_kernels)
+                out.append(lg)
+        got = torch.cat(out, dim=1)
+        if not torch.isfinite(got).all():
+            fail(f"non-finite {cfg.dtype} logits (kernels={use_kernels})")
+        return got.float()
+
+    got, want = run(params32, cfg32, True), run(params32, cfg32, False)
+    print(f"  logits scale: max |plain| = {want.abs().max().item():.3f}")
+    check_close(f"f32 {cfg32.name} prefill T={T} + {n_dec} decode steps, "
+                f"kernels vs plain", got, want, E2E_TOL)
+    got16, want16 = run(params16, cfg16, True), run(params16, cfg16, False)
+    rel = row_rel(got16, want16)
+    rel_k, rel_p = row_rel(got16, want), row_rel(want16, want)
+    ok = rel <= E2E_BF16_REL and rel_k <= 2 * rel_p + E2E_TOL
+    same = (got16.argmax(-1) == want16.argmax(-1)).float().mean().item()
+    print(f"  bf16 {cfg16.name} prefill T={T} + {n_dec} decode steps: "
+          f"max_row_rel_err kernels vs plain {rel:.3e} (tol "
+          f"{E2E_BF16_REL:g}); vs the f32 logits: kernels {rel_k:.3e}, "
+          f"plain {rel_p:.3e} (tol 2x plain + {E2E_TOL:g}); same greedy "
+          f"token in {same:.3f} of rows {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        fail("bf16 logits of the kernel path disagree with the plain path")
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def time_kernels(main, errs, launches):
+    """Phase 6: the kernel table."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rows = []
+    q, k, v, pos = main["flash"]
+    B, H, T, hd = q.shape
+    el = q.element_size()
+    # Four copies of the inputs (4 x 33 MB), as distinct layers would be.
+    fl = [(q, k, v)] + [tuple(x.clone(memory_format=torch.preserve_format)
+                              for x in (q, k, v)) for _ in range(3)]
+    ms, eager = time_ms([lambda a=a: fk.flash_attention(*a, pos, pos)
+                         for a in fl])
+    pairs = int((pos[None, :] <= pos[:, None]).sum().item())   # causal
+    b, t = bound(el * (q.numel() + k.numel() + v.numel() + q.numel())
+                 + 4 * 2 * T, 4.0 * B * H * hd * pairs)
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:83",
+        launches=launches["flash_attention"],
+        max_abs_err=errs["flash_attention", "bfloat16"][0],
+        max_row_rel_err=errs["flash_attention", "bfloat16"][1],
+        f32_max_abs_err=errs["flash_attention", "float32"][0],
+        ms=ms, eager_ms=eager,
+        plain_ms=time_ms([lambda a=a: attention_ref(*a, pos, pos)
+                          for a in fl])[0],
+        bound_ms=b, bound_by=t,
+        library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True) for a in fl])[0],
+        shape=f"B={B} H={H} KV={k.shape[1]} T={T} hd={hd} bf16 causal"))
+
+    qd, kc, vc, k_pos, p = main["decode"]
+    B, KV, G, hd = qd.shape
+    S = kc.shape[2]
+    valid = k_pos <= p
+    n_valid = int(valid.sum().item())
+    el = qd.element_size()
+    b, t = bound(el * (2 * qd.numel() + 2 * B * KV * n_valid * hd) + 4 * S,
+                 4.0 * B * KV * G * hd * n_valid)
+    qh = qd.reshape(B, KV * G, 1, hd)
+    mask = valid[None, None, None, :]
+    # One cache per layer of the model (24 x 4.2 MB), as a decode step reads.
+    caches = [(kc, vc)] + [(kc.clone(memory_format=torch.preserve_format),
+                            vc.clone(memory_format=torch.preserve_format))
+                           for _ in range(23)]
+    ms, eager = time_ms([lambda c=c: dk.decode_attention(qd, *c, k_pos, p)
+                         for c in caches])
+    rows.append(dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:79",
+        launches=launches["decode_attention"],
+        max_abs_err=errs["decode_attention", "bfloat16"][0],
+        max_row_rel_err=errs["decode_attention", "bfloat16"][1],
+        f32_max_abs_err=errs["decode_attention", "float32"][0],
+        ms=ms, eager_ms=eager,
+        plain_ms=time_ms([lambda c=c: decode_attention_ref(qd, *c, k_pos, p)
+                          for c in caches])[0],
+        bound_ms=b, bound_by=t,
+        library_ms=time_ms([lambda c=c: F.scaled_dot_product_attention(
+            qh, *c, attn_mask=mask, enable_gqa=True) for c in caches])[0],
+        shape=f"B={B} KV={KV} G={G} S={S} valid={n_valid} hd={hd} bf16"))
+    for r in rows:
+        print(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms "
+              f"(eager {r['eager_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['launches']} launches on the served batch")
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import resolve_device
+
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    phase("1. card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi)
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    phase("2. build")
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  [{name}] {line.strip()}")
+    print(f"  built {sorted(logs) or 'nothing (cached)'} in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    phase("3. kernels vs plain versions")
+    main_inputs, errs = check_kernels(dev, args.seed)
+
+    phase("4. plan -> deploy -> serve")
+    engine, reqs, launches = serve_main_path(dev, args.seed)
+
+    phase("5. full-width f32 logits, kernels vs plain")
+    compare_paths(dev, args.seed)
+
+    phase("6. kernel times")
+    rows = time_kernels(main_inputs, errs, launches)
+
+    phase("7. device trace of one served batch")
+    trace_batch(engine, reqs)
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
