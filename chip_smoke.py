@@ -8,25 +8,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
      per kernel, in parallel) and print ptxas' register report;
   3. hold each kernel against its plain PyTorch version, run in f32 on the
-     same inputs, at the serving path's shapes: f32 at 2e-5 with TF32 off;
+     same inputs, at the serving paths' shapes: f32 at 2e-5 with TF32 off;
      bf16 at atol 4e-3 / rtol 1.6e-2 per element and 1e-2 relative per
-     query row; with a ragged length, Tq != Tk, a query row with no
-     admissible key, a sliding window, ring positions and empty-slot marks;
+     row (query row; last axis of a scan's y); attention with a ragged
+     length, Tq != Tk, a query row with no admissible key, a sliding
+     window, ring positions and empty-slot marks, and at zamba2's head dim
+     112 (G = 1, window 4096); the two scans (ssm_scan, rwkv6_wkv) over a
+     ragged T from a nonzero initial state, their final state at 2e-5;
   4. serve: AGH plans the paper's default instance, `to_deployment` turns
      the plan into pairs, and one full-width bf16 qwen2-0.5b engine (random
      weights from --seed) serves 8 requests of 600-999 prompt tokens
      (left-padded to 999, not a multiple of any kernel tile) for 32 new
-     tokens each; the kernels' launch counts over that run must be > 0;
+     tokens each; then a full-width, full-depth bf16 rwkv6-7b engine and a
+     zamba2-7b one serve the same requests, one engine at a time. Each
+     path's kernel launch counts are set to 0 just before its run and read
+     just after; every kernel of the path must have launched;
   5. run one full-width prefill + 4 decode steps on the kernels and on
      the plain versions, and compare the logits: in f32 at atol = rtol =
      1e-3; in bf16 (same bf16-rounded weights) at 5e-2 relative per logit
      row, and no more than twice as far from the f32 logits as the plain
-     path;
+     path; for qwen2-0.5b at full depth, rwkv6-7b at 4 layers and zamba2-7b
+     at 7 (one super-block, the shared attention, one tail layer);
   6. time each kernel at the serving shapes with CUDA events, beside its
-     plain version, `F.scaled_dot_product_attention` (a yardstick the port
+     plain version, one PyTorch call computing the same function where
+     there is one (`F.scaled_dot_product_attention`, a yardstick the port
      never calls) and the least time the card could take (its bound);
-  7. trace one more served batch with torch.profiler: the device's busy
-     share of the batch's wall time and the kernels that take the most.
+  7. trace one more served batch of each model with torch.profiler: the
+     device's busy share of the batch's wall time and the kernels that
+     take the most.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the run fails.
@@ -47,11 +56,18 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth.
+# H100 SXM data sheet: dense bf16 tensor-core rate, f32 rate outside the
+# tensor cores (the scans' IEEE f32 math) and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 ARCH = "qwen2-0.5b"
+# The recurrent models served after qwen2-0.5b, each with the kernels its
+# path must launch, and the depth of its phase-5 logits check.
+RECURRENT = {"rwkv6-7b": (("rwkv6_wkv",), 4),
+             "zamba2-7b": (("ssm_scan", "flash_attention",
+                            "decode_attention"), 7)}
 PROMPT_LENS = [600 + 57 * i for i in range(8)]     # 600 .. 999
 NEW_TOKENS = 32
 # Kernels are held against their plain versions run in f32 on the same
@@ -112,8 +128,9 @@ def time_ms(fns, n: int = 48) -> tuple[float, float]:
     return start.elapsed_time(end) / n, eager
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+def bound(bytes_moved: float, flops: float,
+          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -261,12 +278,163 @@ def check_kernels(dev, seed):
     return main, errs
 
 
-def serve_main_path(dev, seed):
-    """Phase 4: plan -> deploy -> serve through the launcher's functions.
-    Returns the serving stats and the kernels' launch counts."""
+def check_attention_hd112(dev, seed):
+    """Phase 3, zamba2's shared attention: hd 112, G = 1, its 4096-token
+    window, at the served batch's shapes. Returns the bf16 inputs and each
+    kernel's largest bf16 (max abs, row relative) error."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cfg = get_config("zamba2-7b")
+    B, H, KV, hd = len(PROMPT_LENS), cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    W, T = cfg.sliding_window, max(PROMPT_LENS)
+    S = T + NEW_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    main, errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        q, k, v = (model_layout(gen, B, T, h, hd, dtype, dev)
+                   for h in (H, KV, KV))
+        pos = torch.arange(T, dtype=torch.int32, device=dev)
+        e_f = check_kernel(
+            f"flash_attention {tag} B={B} H={H} KV={KV} T={T} hd={hd} "
+            f"window={W}", fk.flash_attention(q, k, v, pos, pos, W),
+            attention_ref(*f32(q, k, v), pos, pos, W))
+        qd = torch.randn((B, KV, 1, hd), generator=gen, device=dev).to(dtype)
+        kc, vc = (model_layout(gen, B, S, KV, hd, dtype, dev)
+                  for _ in range(2))
+        p = T + NEW_TOKENS // 2
+        slots = torch.arange(S, device=dev)
+        k_pos = torch.where(slots <= p, slots, 2 ** 30).to(torch.int32)
+        e_d = check_kernel(
+            f"decode_attention {tag} B={B} KV={KV} G=1 S={S} hd={hd} "
+            f"pos={p}", dk.decode_attention(qd, kc, vc, k_pos, p),
+            decode_attention_ref(*f32(qd, kc, vc), k_pos, p))
+        if dtype == torch.bfloat16:
+            main = {"flash": (q, k, v, pos, W),
+                    "decode": (qd, kc, vc, k_pos, p)}
+            errs = {"flash_attention": e_f, "decode_attention": e_d}
+    return main, errs
+
+
+def scan_inputs(kind, dtype, gen, dev, T=None):
+    """Inputs of a scan at the served batch's shape (B 8, T 999), drawn as
+    the reference's kernel sweep draws them (tests/test_kernels.py), and a
+    nonzero initial state: ssm_scan at zamba2's widths (nh 112, hp 64,
+    N 64), rwkv6_wkv at rwkv6-7b's (H 64, hd 64)."""
+    B, T = len(PROMPT_LENS), T or max(PROMPT_LENS)
+
+    def randn(shape, scale=1.0, dt=torch.float32):
+        x = torch.randn(shape, generator=gen, device=dev) * scale
+        return x.to(dt)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    if kind == "ssm_scan":
+        nh, hp, N = 112, 64, 64
+        return (randn((B, T, nh, hp), dt=dtype),
+                randn((B, T, N), 0.5, dtype), randn((B, T, N), 0.5, dtype),
+                uniform((B, T, nh), 0.001, 0.1), -uniform((nh,), 0.5, 2.0),
+                randn((nh,)), randn((B, nh, hp, N)))
+    H, hd = 64, 64
+    r, k, v = (randn((B, T, H, hd), 0.5, dtype) for _ in range(3))
+    lw = (-torch.exp(randn((B, T, H, hd), 0.5) - 1.5)).to(dtype)
+    return r, k, v, lw, randn((H, hd), 0.5), randn((B, H, hd, hd))
+
+
+def check_scans(dev, seed):
+    """Phase 3 for the two scans at the served shapes: f32 and bf16, over
+    a ragged T (999 and 77 are no multiple of the 64-step chunk), from a
+    nonzero initial state and from zeros; y as every kernel, the final
+    state (f32 either way) at 2e-5. Returns the f32 inputs (what the
+    models pass) and each kernel's largest errors by dtype."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    fns = {"ssm_scan": (sk.ssm_scan, ssm_scan_ref, 3),
+           "rwkv6_wkv": (wk.rwkv6_wkv, rwkv6_wkv_ref, 4)}
+    main, errs = {}, {}
+    for name, (kern, plain, n_cast) in fns.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            *ins, s0 = scan_inputs(name, dtype, gen, dev)
+            # The plain version in f32 on the same (exactly upcast) inputs.
+            ins32 = [*f32(*ins[:n_cast]), *ins[n_cast:]]
+            shape = "x".join(str(n) for n in ins[0].shape)
+            err = (0.0, 0.0)
+            for label, sl, state in (("", slice(None), s0),
+                                     (" from zeros", slice(None), None),
+                                     (" T=77", slice(0, 77), s0)):
+                cut = [a[:, sl] if a.dim() >= 3 else a for a in ins]
+                cut32 = [a[:, sl] if a.dim() >= 3 else a for a in ins32]
+                y, s_out = kern(*cut, state)
+                want_y, want_s = plain(*cut32, state)
+                e = check_kernel(f"{name} {tag} [{shape}]{label}, y", y,
+                                 want_y)
+                check_close(f"{name} {tag} [{shape}]{label}, final state",
+                            s_out, want_s, F32_TOL)
+                err = tuple(max(a, b) for a, b in zip(err, e))
+            errs[name, tag] = err
+            if dtype == torch.float32:
+                main[name] = (*ins, s0)
+    return main, errs
+
+
+def kernel_ops() -> dict:
+    """Each kernel's public op, which counts its launches."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention,
+            "ssm_scan": ssm_scan, "rwkv6_wkv": rwkv6_wkv}
+
+
+def serve_counted(engine, reqs, kernels, label, seed):
+    """Serve `reqs` once with every launch count set to 0 just before and
+    read just after, then twice more for the spread of the host-clock
+    numbers. Fails unless each of `kernels` launched and every request
+    got its tokens. Returns the counts."""
+    from repro_torch.launch import serve
+
+    cfg = engine.cfg
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    stats = serve.serve_batch(engine, reqs)
+    launches = {name: op.launches for name, op in ops.items()}
+    print(f"  kernel launches in that run: {launches}")
+    runs = [stats] + [serve.serve_batch(engine, serve.make_requests(
+        PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)) for _ in range(2)]
+    T = max(PROMPT_LENS)
+    print(f"  served {len(reqs)} requests, prompts {min(PROMPT_LENS)}-{T} "
+          f"(padded to {T}), {NEW_TOKENS} new tokens each, on {label} "
+          f"bf16, 3 runs: TTFT ms "
+          f"{[round(r['ttft_s'] * 1e3, 2) for r in runs]}, tok/s "
+          f"{[round(r['tok_per_s'], 1) for r in runs]}, wall s "
+          f"{[round(r['wall_s'], 3) for r in runs]}", flush=True)
+    for r in reqs:
+        if len(r.output) != NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            fail(f"request {r.rid} got {len(r.output)} tokens {r.output}")
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"the served {label} batch never launched {name}")
+    return launches
+
+
+def serve_main_path(dev, seed):
+    """Phase 4: plan -> deploy -> serve through the launcher's functions.
+    Returns the engine, the requests and the kernels' launch counts."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
@@ -284,32 +452,52 @@ def serve_main_path(dev, seed):
     serve.serve_batch(engine, serve.make_requests([16, 9], 2,
                                                   cfg.vocab_size, seed + 1))
     reqs = serve.make_requests(PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)
-    flash_attention.launches = decode_attention.launches = 0
-    stats = serve.serve_batch(engine, reqs)
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
-    print(f"  kernel launches in that run: {launches}")
-    # The same batch twice more, for the spread of the host-clock numbers.
-    runs = [stats] + [serve.serve_batch(engine, serve.make_requests(
-        PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)) for _ in range(2)]
-    print(f"  served {len(reqs)} requests, prompts {min(PROMPT_LENS)}-{T} "
-          f"(padded to {T}), {NEW_TOKENS} new tokens each, on {cfg.name} "
-          f"bf16, 3 runs: TTFT ms "
-          f"{[round(r['ttft_s'] * 1e3, 2) for r in runs]}, tok/s "
-          f"{[round(r['tok_per_s'], 1) for r in runs]}, wall s "
-          f"{[round(r['wall_s'], 3) for r in runs]}")
-    for r in reqs:
-        if len(r.output) != NEW_TOKENS or not all(
-                0 <= t < cfg.vocab_size for t in r.output):
-            fail(f"request {r.rid} got {len(r.output)} tokens {r.output}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"the served batch never launched {name}")
+    launches = serve_counted(engine, reqs,
+                             ("flash_attention", "decode_attention"), ARCH,
+                             seed)
     return engine, reqs, launches
 
 
+def serve_recurrent(arch, dev, seed):
+    """Phase 4 for a recurrent model: one full-width, full-depth bf16
+    engine, random weights from `seed`, serves the batch, and phase 7
+    traces one more batch, before the engine is freed for the next.
+    Returns the launch counts and the trace's summary."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(arch)
+    T = max(PROMPT_LENS)
+    t0 = time.perf_counter()
+    engine = serve.build_engine(cfg, dev, seed, max_len=T + NEW_TOKENS,
+                                max_batch=len(PROMPT_LENS))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(engine.params))
+    print(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_par / 1e9:.2f} B parameters drawn in "
+          f"{time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated",
+          flush=True)
+    serve.serve_batch(engine, serve.make_requests([16, 9], 2,
+                                                  cfg.vocab_size, seed + 1))
+    reqs = serve.make_requests(PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)
+    launches = serve_counted(engine, reqs, RECURRENT[arch][0], arch, seed)
+    print(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+          f"allocated so far")
+    phase(f"7. device trace of one served {arch} batch")
+    trace = trace_batch(engine, reqs)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, trace
+
+
 def trace_batch(engine, reqs):
-    """Phase 7: the served batch again, under torch.profiler."""
+    """Phase 7: the served batch again, under torch.profiler. Returns
+    (busy share, wall ms, busy ms, launches), or None when the profiler
+    saw no CUDA kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
@@ -326,22 +514,31 @@ def trace_batch(engine, reqs):
     if not rows:
         print("  device trace: not measured (the profiler saw no CUDA "
               "kernels)")
-        return
-    print(f"  traced batch wall {stats['wall_s'] * 1e3:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms ({100 * busy_ms / (stats['wall_s'] * 1e3):.1f}"
-          f"% busy), {sum(e.count for e in rows)} kernel launches")
+        return None
+    wall_ms = stats["wall_s"] * 1e3
+    n = sum(e.count for e in rows)
+    print(f"  traced batch wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
+          f"{n} kernel launches")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:6d}x  {e.key[:90]}")
+    return dict(busy=busy_ms / wall_ms, wall_ms=wall_ms, busy_ms=busy_ms,
+                launches=n)
 
 
-def compare_paths(dev, seed):
+def compare_paths(dev, seed, arch=ARCH, n_layers=None):
     """Phase 5: full-width prefill + 4 decode steps, kernels vs plain, in
-    f32 and in bf16 on the same bf16-rounded weights."""
+    f32 and in bf16 on the same bf16-rounded weights; `n_layers` cuts the
+    depth."""
+    import gc
+
     from repro_torch.configs import get_config
     from repro_torch.models import decoder
 
-    cfg16 = get_config(ARCH)
+    cfg16 = get_config(arch)
+    if n_layers:
+        cfg16 = dataclasses.replace(cfg16, n_layers=n_layers)
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
     params16 = decoder.init_params(
         torch.Generator(device=dev).manual_seed(seed), cfg16)
@@ -350,6 +547,7 @@ def compare_paths(dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     toks = torch.randint(1, cfg16.vocab_size, (B, T + n_dec), generator=gen,
                          device=dev)
+    name = f"{cfg16.name} ({cfg16.n_layers} layers)"
 
     def run(params, cfg, use_kernels):
         with torch.inference_mode():
@@ -364,26 +562,32 @@ def compare_paths(dev, seed):
                 out.append(lg)
         got = torch.cat(out, dim=1)
         if not torch.isfinite(got).all():
-            fail(f"non-finite {cfg.dtype} logits (kernels={use_kernels})")
+            fail(f"non-finite {cfg.dtype} logits of {name} "
+                 f"(kernels={use_kernels})")
         return got.float()
 
     got, want = run(params32, cfg32, True), run(params32, cfg32, False)
-    print(f"  logits scale: max |plain| = {want.abs().max().item():.3f}")
-    check_close(f"f32 {cfg32.name} prefill T={T} + {n_dec} decode steps, "
+    print(f"  {name} logits scale: max |plain| = "
+          f"{want.abs().max().item():.3f}")
+    check_close(f"f32 {name} prefill T={T} + {n_dec} decode steps, "
                 f"kernels vs plain", got, want, E2E_TOL)
     got16, want16 = run(params16, cfg16, True), run(params16, cfg16, False)
     rel = row_rel(got16, want16)
     rel_k, rel_p = row_rel(got16, want), row_rel(want16, want)
     ok = rel <= E2E_BF16_REL and rel_k <= 2 * rel_p + E2E_TOL
     same = (got16.argmax(-1) == want16.argmax(-1)).float().mean().item()
-    print(f"  bf16 {cfg16.name} prefill T={T} + {n_dec} decode steps: "
+    print(f"  bf16 {name} prefill T={T} + {n_dec} decode steps: "
           f"max_row_rel_err kernels vs plain {rel:.3e} (tol "
           f"{E2E_BF16_REL:g}); vs the f32 logits: kernels {rel_k:.3e}, "
           f"plain {rel_p:.3e} (tol 2x plain + {E2E_TOL:g}); same greedy "
           f"token in {same:.3f} of rows {'ok' if ok else 'MISMATCH'}",
           flush=True)
     if not ok:
-        fail("bf16 logits of the kernel path disagree with the plain path")
+        fail(f"bf16 logits of {name}'s kernel path disagree with the "
+             f"plain path")
+    del params16, params32
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _tree_map(fn, tree):
@@ -391,78 +595,168 @@ def _tree_map(fn, tree):
             for k, v in tree.items()}
 
 
-def time_kernels(main, errs, launches):
-    """Phase 6: the kernel table."""
-    from repro_torch.kernels.decode_attention import kernel as dk
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _time_flash(q, k, v, pos, window, n_sets):
+    """Flash kernel, plain version and SDPA on `n_sets` copies of the
+    inputs (together past the 50 MB L2, as distinct layers are)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    rows = []
-    q, k, v, pos = main["flash"]
     B, H, T, hd = q.shape
-    el = q.element_size()
-    # Four copies of the inputs (4 x 33 MB), as distinct layers would be.
     fl = [(q, k, v)] + [tuple(x.clone(memory_format=torch.preserve_format)
-                              for x in (q, k, v)) for _ in range(3)]
-    ms, eager = time_ms([lambda a=a: fk.flash_attention(*a, pos, pos)
+                              for x in (q, k, v)) for _ in range(n_sets - 1)]
+    ms, eager = time_ms([lambda a=a: fk.flash_attention(*a, pos, pos, window)
                          for a in fl])
-    pairs = int((pos[None, :] <= pos[:, None]).sum().item())   # causal
-    b, t = bound(el * (q.numel() + k.numel() + v.numel() + q.numel())
+    adm = pos[None, :] <= pos[:, None]
+    if window > 0:
+        adm &= pos[None, :] > pos[:, None] - window
+    pairs = int(adm.sum().item())
+    b, t = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel())
                  + 4 * 2 * T, 4.0 * B * H * hd * pairs)
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:83",
-        launches=launches["flash_attention"],
-        max_abs_err=errs["flash_attention", "bfloat16"][0],
-        max_row_rel_err=errs["flash_attention", "bfloat16"][1],
-        f32_max_abs_err=errs["flash_attention", "float32"][0],
-        ms=ms, eager_ms=eager,
-        plain_ms=time_ms([lambda a=a: attention_ref(*a, pos, pos)
-                          for a in fl])[0],
-        bound_ms=b, bound_by=t,
-        library_ms=time_ms([lambda a=a: F.scaled_dot_product_attention(
-            *a, is_causal=True, enable_gqa=True) for a in fl])[0],
-        shape=f"B={B} H={H} KV={k.shape[1]} T={T} hd={hd} bf16 causal"))
+    # SDPA's causal mask is the same function when the window covers T.
+    lib = (time_ms([lambda a=a: F.scaled_dot_product_attention(
+        *a, is_causal=True, enable_gqa=True) for a in fl])[0]
+        if window == 0 or window >= T else None)
+    return dict(ms=ms, eager_ms=eager,
+                plain_ms=time_ms([lambda a=a: attention_ref(*a, pos, pos,
+                                                            window)
+                                  for a in fl])[0],
+                bound_ms=b, bound_by=t, library_ms=lib,
+                shape=f"B={B} H={H} KV={k.shape[1]} T={T} hd={hd} "
+                      f"{str(q.dtype).split('.')[-1]} causal"
+                      + (f" window={window}" if window else ""))
 
-    qd, kc, vc, k_pos, p = main["decode"]
+
+def _time_decode(qd, kc, vc, k_pos, p, n_caches):
+    """Decode kernel, plain version and SDPA over `n_caches` caches (one
+    per layer, as a decode step reads them)."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
     B, KV, G, hd = qd.shape
     S = kc.shape[2]
     valid = k_pos <= p
     n_valid = int(valid.sum().item())
-    el = qd.element_size()
-    b, t = bound(el * (2 * qd.numel() + 2 * B * KV * n_valid * hd) + 4 * S,
+    b, t = bound(qd.element_size() * (2 * qd.numel()
+                                      + 2 * B * KV * n_valid * hd) + 4 * S,
                  4.0 * B * KV * G * hd * n_valid)
     qh = qd.reshape(B, KV * G, 1, hd)
     mask = valid[None, None, None, :]
-    # One cache per layer of the model (24 x 4.2 MB), as a decode step reads.
     caches = [(kc, vc)] + [(kc.clone(memory_format=torch.preserve_format),
                             vc.clone(memory_format=torch.preserve_format))
-                           for _ in range(23)]
+                           for _ in range(n_caches - 1)]
     ms, eager = time_ms([lambda c=c: dk.decode_attention(qd, *c, k_pos, p)
                          for c in caches])
-    rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:79",
-        launches=launches["decode_attention"],
-        max_abs_err=errs["decode_attention", "bfloat16"][0],
-        max_row_rel_err=errs["decode_attention", "bfloat16"][1],
-        f32_max_abs_err=errs["decode_attention", "float32"][0],
-        ms=ms, eager_ms=eager,
-        plain_ms=time_ms([lambda c=c: decode_attention_ref(qd, *c, k_pos, p)
-                          for c in caches])[0],
-        bound_ms=b, bound_by=t,
-        library_ms=time_ms([lambda c=c: F.scaled_dot_product_attention(
-            qh, *c, attn_mask=mask, enable_gqa=True) for c in caches])[0],
-        shape=f"B={B} KV={KV} G={G} S={S} valid={n_valid} hd={hd} bf16"))
+    return dict(ms=ms, eager_ms=eager,
+                plain_ms=time_ms([lambda c=c: decode_attention_ref(
+                    qd, *c, k_pos, p) for c in caches])[0],
+                bound_ms=b, bound_by=t,
+                library_ms=time_ms([lambda c=c: F.scaled_dot_product_attention(
+                    qh, *c, attn_mask=mask, enable_gqa=True)
+                    for c in caches])[0],
+                shape=f"B={B} KV={KV} G={G} S={S} valid={n_valid} hd={hd} "
+                      f"{str(qd.dtype).split('.')[-1]}")
+
+
+def _time_scan(name, ins):
+    """A scan kernel and its plain (stepwise) version on the served shape's
+    f32 inputs, from a nonzero state. The bound counts the recurrence's own
+    work, 4 flops (two multiply-adds) per state element per step, plus one
+    exponential per decay, at the f32 rate outside the tensor cores (the
+    kernels' math is IEEE f32); each input read once, y and the final
+    state written once."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    *args, s0 = ins
+    kern, plain = ((sk.ssm_scan, ssm_scan_ref) if name == "ssm_scan"
+                   else (wk.rwkv6_wkv, rwkv6_wkv_ref))
+    x = args[0]
+    B, T = x.shape[:2]
+    n_in = sum(a.numel() * a.element_size() for a in args)
+    state_bytes = 2 * s0.numel() * 4
+    y_bytes = x.numel() * x.element_size()
+    decays = args[3].numel() if name == "ssm_scan" else x.numel()
+    flops = 4.0 * T * s0.numel() + decays
+    b, t = bound(n_in + y_bytes + state_bytes, flops, PEAK_F32_FLOPS)
+    ms, eager = time_ms([lambda: kern(*args, s0)], n=20)
+    return dict(ms=ms, eager_ms=eager,
+                plain_ms=time_ms([lambda: plain(*args, s0)], n=2)[0],
+                bound_ms=b, bound_by=t, bound_peak="f32 67 TFLOP/s",
+                bound_bf16_peak_ms=bound(n_in + y_bytes + state_bytes,
+                                         flops)[0],
+                library_ms=None,
+                shape="x".join(str(n) for n in x.shape) + " f32, state "
+                      + "x".join(str(n) for n in s0.shape))
+
+
+SOURCES = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:83",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:79",
+    "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:75",
+    "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:74",
+}
+
+
+def time_kernels(main, errs, launches_by_path):
+    """Phase 6: the kernel table. The attention rows time the qwen2-0.5b
+    shapes, with zamba2's hd-112 shapes under "hd112"; the scans time the
+    served recurrent shapes."""
+    q, k, v, pos = main["flash"]
+    qd, kc, vc, k_pos, p = main["decode"]
+    timed = {
+        "flash_attention": _time_flash(q, k, v, pos, 0, 4),
+        "decode_attention": _time_decode(qd, kc, vc, k_pos, p, 24),
+        "ssm_scan": _time_scan("ssm_scan", main["ssm_scan"]),
+        "rwkv6_wkv": _time_scan("rwkv6_wkv", main["rwkv6_wkv"]),
+    }
+    q, k, v, pos, window = main["hd112"]["flash"]
+    timed["flash_attention"]["hd112"] = dict(
+        _time_flash(q, k, v, pos, window, 2),
+        max_abs_err=errs["hd112"]["flash_attention"][0],
+        max_row_rel_err=errs["hd112"]["flash_attention"][1])
+    timed["decode_attention"]["hd112"] = dict(
+        _time_decode(*main["hd112"]["decode"], 13),
+        max_abs_err=errs["hd112"]["decode_attention"][0],
+        max_row_rel_err=errs["hd112"]["decode_attention"][1])
+    rows = []
+    for name, t in timed.items():
+        # The attention kernels run bf16 on the served paths, the scans f32
+        # (the models upcast before them).
+        main_dt, other = (("bfloat16", "float32") if "attention" in name
+                          else ("float32", "bfloat16"))
+        by_path = {path: n[name] for path, n in launches_by_path.items()
+                   if n[name]}
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=SOURCES[name], launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            max_abs_err=errs[name, main_dt][0],
+            max_row_rel_err=errs[name, main_dt][1],
+            **{("f32" if other == "float32" else "bf16") + "_max_abs_err":
+               errs[name, other][0]},
+            **t))
     for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms "
               f"(eager {r['eager_ms']:.4f} ms), plain "
-              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"{r['launches']} launches on the served batch")
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
+              f"{r['launches_by_path']}")
+        if "hd112" in r:
+            h = r["hd112"]
+            print(f"    at hd 112 [{h['shape']}]: {h['ms']:.4f} ms "
+                  f"(eager {h['eager_ms']:.4f} ms), plain "
+                  f"{h['plain_ms']:.4f} ms, SDPA {h['library_ms']:.4f} ms, "
+                  f"bound {h['bound_ms']:.4f} ms ({h['bound_by']})")
     return rows
 
 
@@ -500,18 +794,34 @@ def main(argv=None) -> int:
 
     phase("3. kernels vs plain versions")
     main_inputs, errs = check_kernels(dev, args.seed)
+    main_inputs["hd112"], errs["hd112"] = check_attention_hd112(dev,
+                                                                args.seed)
+    scan_inputs_, scan_errs = check_scans(dev, args.seed)
+    main_inputs.update(scan_inputs_)
+    errs.update(scan_errs)
 
     phase("4. plan -> deploy -> serve")
     engine, reqs, launches = serve_main_path(dev, args.seed)
+    launches_by_path, traces = {ARCH: launches}, {}
+    for arch in RECURRENT:
+        phase(f"4. serve {arch}")
+        launches_by_path[arch], traces[arch] = serve_recurrent(
+            arch, dev, args.seed)
 
-    phase("5. full-width f32 logits, kernels vs plain")
+    phase("5. full-width logits, kernels vs plain")
     compare_paths(dev, args.seed)
+    for arch, (_, n_layers) in RECURRENT.items():
+        compare_paths(dev, args.seed, arch, n_layers)
 
     phase("6. kernel times")
-    rows = time_kernels(main_inputs, errs, launches)
+    rows = time_kernels(main_inputs, errs, launches_by_path)
 
-    phase("7. device trace of one served batch")
-    trace_batch(engine, reqs)
+    phase(f"7. device trace of one served {ARCH} batch")
+    traces[ARCH] = trace_batch(engine, reqs)
+    for arch, tr in traces.items():
+        if tr:
+            print(f"  {arch}: {100 * tr['busy']:.1f}% busy over a "
+                  f"{tr['wall_ms']:.1f} ms batch, {tr['launches']} launches")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
 
     print(json.dumps({"kernels": rows}))

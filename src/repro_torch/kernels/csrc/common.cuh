@@ -1,6 +1,6 @@
-// Shared helpers of the port's attention kernels: element conversions for
-// the two input types (float32, bfloat16), the 4-D stride record the
-// kernels read their operands through, and the C export macro.
+// Shared helpers of the port's kernels: element conversions for the two
+// input types (float32, bfloat16), the 4-D stride record the kernels read
+// their operands through, and the C export macro.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,7 +14,8 @@
 constexpr float kNegInf = -1e30f;
 
 // Element strides of a 4-D operand, in the reference kernels' axis order
-// ([B, H, T, hd] for attention, [B, KV, G|S, hd] for decode).
+// ([B, H, T, hd] for attention, [B, KV, G|S, hd] for decode; the scans'
+// [B, T, H, hd] operands are given in the same (b, h, t, d) order).
 struct Strides {
   int64_t b, h, t, d;
 };

@@ -254,6 +254,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, o, ws, k_pos, pos, B, KV, G, S, n_split,
                            split_len, scale, sq, sk, sv, so, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, ws, k_pos, pos, B, KV, G, S, n_split,
+                           split_len, scale, sq, sk, sv, so, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, ws, k_pos, pos, B, KV, G, S, n_split,
                             split_len, scale, sq, sk, sv, so, stream);

@@ -555,6 +555,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk, window,
                            scale, sq, sk, sv, so, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk, window,
+                           scale, sq, sk, sv, so, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk,
                             window, scale, sq, sk, sv, so, stream);

@@ -21,7 +21,7 @@ import torch
 from .. import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 MAX_GROUP = 16     # most query heads per KV head the kernel takes
 TILE = 64          # cache slots per tile (DBK in the source)
 BLOCKS_PER_SM = 2  # blocks in flight the cut aims at

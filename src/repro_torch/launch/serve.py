@@ -5,6 +5,9 @@ pairs, and serve a batch of requests on one engine.
         [--requests 8] [--prompt-len 32] [--new-tokens 16] [--seed 0]
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
+`--arch` takes the attention configs (qwen2-*, deepseek-7b), rwkv6-7b and
+zamba2-7b.
+
 It runs on CUDA unless `--device cpu` is given, and raises when CUDA is
 absent. `--smoke` serves the reduced config, sized for the CPU. Weights
 are random, drawn from `--seed`.

@@ -11,7 +11,9 @@ on both sides: TF32 is off). bf16 kernels round the output to bf16 (2**-9
 relative) and the flash kernel rounds P to bf16 before P V: atol 4e-3 /
 rtol 1.6e-2 per element, and |got - want|_2 / |want|_2 <= 1e-2 per query
 row, which a key tile dropped or a padded key left in the softmax sum
-exceeds on the rows it touches.
+exceeds on the rows it touches. The two scans (ssm_scan, rwkv6_wkv) are
+held the same way, rows being the last axis of y, from a nonzero initial
+state, with their final state (always f32) at 2e-5.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,10 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
+from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 torch.set_num_threads(1)
 
@@ -62,6 +68,7 @@ def _model_layout(rng, B, T, heads, hd, dtype, dev):
 @pytest.mark.parametrize("B,H,KV,T,hd", [
     (1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 8, 8, 256, 128),
     (2, 2, 2, 384, 32), (2, 14, 2, 999, 64), (1, 4, 2, 77, 128),
+    (2, 4, 4, 256, 112), (1, 3, 3, 333, 112),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 96])
@@ -104,6 +111,7 @@ def test_flash_kernel_offset_queries_and_empty_rows(dev, dtype):
 @pytest.mark.parametrize("B,KV,G,S,hd", [
     (1, 2, 4, 512, 64), (2, 1, 8, 1024, 128), (2, 4, 1, 512, 64),
     (8, 2, 7, 1031, 64), (3, 2, 16, 100, 32), (64, 8, 2, 300, 64),
+    (2, 4, 1, 512, 112), (8, 32, 1, 1031, 112),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(dev, B, KV, G, S, hd, dtype):
@@ -139,6 +147,92 @@ def test_decode_kernel_ring_positions_and_sentinel(dev, empty, dtype):
     _assert_matches(got, decode_attention_ref(*_f32(q, k, v), k_pos, last))
 
 
+def _randn(rng, shape, dev, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+        np.float32)).to(dev, dtype)
+
+
+def _ssm_case(rng, B, T, nh, hp, N, dtype, dev):
+    """The reference sweep's inputs and a nonzero initial state."""
+    x = _randn(rng, (B, T, nh, hp), dev, dtype)
+    Bm = _randn(rng, (B, T, N), dev, dtype, 0.5)
+    Cm = _randn(rng, (B, T, N), dev, dtype, 0.5)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, size=(B, T, nh)).astype(
+        np.float32)).to(dev)
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, size=(nh,)).astype(
+        np.float32)).to(dev)
+    D = _randn(rng, (nh,), dev)
+    s0 = _randn(rng, (B, nh, hp, N), dev)
+    return x, Bm, Cm, dt, A, D, s0
+
+
+def _wkv_case(rng, B, T, H, hd, dtype, dev, decay_shift=-1.5):
+    r, k, v = (_randn(rng, (B, T, H, hd), dev, dtype, 0.5) for _ in range(3))
+    lw = -torch.exp(_randn(rng, (B, T, H, hd), dev, scale=0.5)
+                    + decay_shift).to(dtype)
+    u = _randn(rng, (H, hd), dev, scale=0.5)
+    s0 = _randn(rng, (B, H, hd, hd), dev)
+    return r, k, v, lw, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nh,hp,N", [
+    (1, 128, 2, 32, 16), (2, 256, 3, 64, 64), (1, 64, 1, 32, 32),
+    (2, 77, 3, 64, 64), (1, 1, 2, 32, 16), (8, 999, 8, 64, 64),
+    (2, 130, 4, 64, 16), (1, 200, 2, 32, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_matches_plain(dev, B, T, nh, hp, N, dtype):
+    rng = np.random.default_rng(B * 1000 + T + nh)
+    x, Bm, Cm, dt, A, D, s0 = _ssm_case(rng, B, T, nh, hp, N, dtype, dev)
+    n0 = ssm_scan.launches
+    y, state = ssm_scan(x, Bm, Cm, dt, A, D, s0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == n0 + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    want_y, want_s = ssm_scan_ref(*_f32(x, Bm, Cm), dt, A, D, s0)
+    _assert_matches(y, want_y)
+    torch.testing.assert_close(state, want_s, atol=F32_TOL, rtol=F32_TOL)
+    # From zeros (state=None), as the TPU kernel runs.
+    y0, _ = ssm_scan(x, Bm, Cm, dt, A, D)
+    _assert_matches(y0, ssm_scan_ref(*_f32(x, Bm, Cm), dt, A, D)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", [
+    (1, 64, 1, 32), (2, 128, 2, 64), (1, 192, 2, 32), (2, 77, 3, 64),
+    (1, 1, 2, 64), (8, 999, 4, 64), (2, 200, 2, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_matches_plain(dev, B, T, H, hd, dtype):
+    rng = np.random.default_rng(B * 1000 + T + H)
+    r, k, v, lw, u, s0 = _wkv_case(rng, B, T, H, hd, dtype, dev)
+    n0 = rwkv6_wkv.launches
+    y, state = rwkv6_wkv(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv.launches == n0 + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    want_y, want_s = rwkv6_wkv_ref(*_f32(r, k, v, lw), u, s0)
+    _assert_matches(y, want_y)
+    torch.testing.assert_close(state, want_s, atol=F32_TOL, rtol=F32_TOL)
+    y0, _ = rwkv6_wkv(r, k, v, lw, u)
+    _assert_matches(y0, rwkv6_wkv_ref(*_f32(r, k, v, lw), u)[0])
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_survives_a_strong_decay(dev):
+    """A chunk's cumulative log decay far below -88: the kernel takes only
+    differences within a chunk, so nothing overflows."""
+    rng = np.random.default_rng(9)
+    r, k, v, lw, u, s0 = _wkv_case(rng, 2, 200, 2, 64, torch.float32, dev,
+                                   decay_shift=1.5)
+    y, state = rwkv6_wkv(r, k, v, lw, u, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    want_y, want_s = rwkv6_wkv_ref(r, k, v, lw, u, s0)
+    _assert_matches(y, want_y)
+    torch.testing.assert_close(state, want_s, atol=F32_TOL, rtol=F32_TOL)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 2, 8, 48, device=dev)          # head dim 48
@@ -147,3 +241,34 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     y = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         decode_attention(y[:, :, :2], y, y)
+
+    rng = np.random.default_rng(0)
+    x, Bm, Cm, dt, A, D, s0 = _ssm_case(rng, 1, 16, 2, 32, 16,
+                                        torch.float32, dev)
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    with pytest.raises(ValueError, match="CUDA"):    # a CPU tensor
+        ssm_kernel.ssm_scan(x.cpu(), Bm.cpu(), Cm.cpu(), dt.cpu(), A.cpu(),
+                            D.cpu())
+    with pytest.raises(ValueError, match="is on"):   # devices mixed
+        ssm_scan(x, Bm, Cm, dt.cpu(), A, D)
+    with pytest.raises(TypeError):                   # a wrong dtype
+        ssm_scan(x.half(), Bm.half(), Cm.half(), dt, A, D)
+    with pytest.raises(TypeError):
+        ssm_scan(x, Bm, Cm, dt.bfloat16(), A, D)
+    with pytest.raises(ValueError, match="state"):   # a wrong state shape
+        ssm_scan(x, Bm, Cm, dt, A, D, s0[..., :8].contiguous())
+    with pytest.raises(ValueError, match="state"):
+        ssm_scan(x, Bm, Cm, dt, A, D, s0.double())
+
+    r, k, v, lw, u, w0 = _wkv_case(rng, 1, 16, 2, 64, torch.float32, dev)
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_kernel.rwkv6_wkv(r.cpu(), k.cpu(), v.cpu(), lw.cpu(), u.cpu())
+    with pytest.raises(ValueError, match="is on"):
+        rwkv6_wkv(r, k, v, lw, u.cpu())
+    with pytest.raises(TypeError):
+        rwkv6_wkv(r, k, v.bfloat16(), lw, u)
+    with pytest.raises(ValueError, match="state"):
+        rwkv6_wkv(r, k, v, lw, u, w0[:, :1].contiguous())
+    with pytest.raises(ValueError, match="head dim"):
+        rwkv6_wkv(*(t[..., :48] for t in (r, k, v, lw)), u[:, :48])

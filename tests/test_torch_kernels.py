@@ -1,10 +1,17 @@
-"""The port's plain attention versions against the JAX package: the jnp
-oracles (`attention_ref`, `decode_attention_ref`) and the Pallas kernels
-run in interpret mode on the CPU, over the shape sweep of test_kernels.py.
-Inputs come from numpy; each framework gets the same arrays.
+"""The port's plain kernel versions against the JAX package: the jnp
+oracles (`attention_ref`, `decode_attention_ref`, `ssm_scan_ref`,
+`rwkv6_wkv_ref`) and the Pallas kernels run in interpret mode on the CPU,
+over the shape sweeps of test_kernels.py. Inputs come from numpy; each
+framework gets the same arrays.
 
-Tolerances (as in test_kernels.py): 2e-5 for f32, 5e-2 for bf16, which
-rounds the output to 8 bits of mantissa in both frameworks.
+Tolerances (as in test_kernels.py): attention 2e-5 for f32 and 5e-2 for
+bf16, which rounds the output to 8 bits of mantissa in both frameworks;
+ssm_scan 5 times those (that test's own bound); rwkv6_wkv 1e-4. The scans
+also take ragged lengths (checked against the jnp stepwise oracles) and
+carry their state: one call equals two calls split anywhere, the first
+one's final state passed to the second, to 1e-5; and their final state
+equals the JAX model's chunked `S_out` on the inputs a JAX layer builds,
+to 1e-4 (test_torch_models.py compares every cache leaf of the models).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -20,11 +27,21 @@ from repro.kernels.decode_attention.ops import decode_attention as dec_pallas  #
 from repro.kernels.decode_attention.ref import decode_attention_ref as dec_jnp  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as fa_pallas  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as fa_jnp  # noqa: E402
+from repro.kernels.rwkv6_wkv.ops import rwkv6_wkv as wkv_pallas  # noqa: E402
+from repro.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref as wkv_jnp  # noqa: E402
+from repro.kernels.ssm_scan.ops import ssm_scan as ssm_pallas  # noqa: E402
+from repro.kernels.ssm_scan.ref import ssm_scan_ref as ssm_jnp  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv  # noqa: E402
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel  # noqa: E402
+from repro_torch.kernels.ssm_scan.ops import ssm_scan  # noqa: E402
+from repro_torch.models.mamba2 import _ssd_chunked  # noqa: E402
+from repro_torch.models.rwkv6 import _wkv_chunked  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -148,11 +165,15 @@ def test_strided_views_match_contiguous():
 
 
 def test_cpu_tensors_never_count_a_launch():
-    before = (flash_attention.launches, decode_attention.launches)
+    ops = (flash_attention, decode_attention, ssm_scan, rwkv6_wkv)
+    before = [op.launches for op in ops]
     x = torch.zeros(1, 2, 8, 32)
     flash_attention(x, x, x)
     decode_attention(x[:, :, :1], x, x)
-    assert (flash_attention.launches, decode_attention.launches) == before
+    b = x[:, :, 0, :16]                   # [B, T, N] for the SSD scan
+    ssm_scan(x, b, b, x[..., 0], x[0, 0, :, 0], x[0, 0, :, 0])
+    rwkv6_wkv(x, x, x, x, x[0, 0])
+    assert [op.launches for op in ops] == before
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -163,6 +184,11 @@ def test_kernel_launchers_refuse_cpu_tensors():
         fa_kernel.flash_attention(x, x, x, pos, pos)
     with pytest.raises(ValueError, match="CUDA"):
         dec_kernel.decode_attention(x[:, :, :2], x, x, pos, 7)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_kernel.rwkv6_wkv(x, x, x, x, x[0, 0])
+    b = x[:, :, 0, :16]
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_kernel.ssm_scan(x, b, b, x[..., 0], x[0, 0, :, 0], x[0, 0, :, 0])
 
 
 @pytest.mark.parametrize("B,KV,S", [(8, 2, 1031), (1, 1, 1), (3, 2, 100),
@@ -175,3 +201,210 @@ def test_decode_split_covers_the_cache(B, KV, S):
     assert (n_split - 1) * split_len < S <= n_split * split_len
     n_tiles = -(-S // dec_kernel.TILE)
     assert B * KV * n_split >= min(2 * 132, B * KV * n_tiles) // 2
+
+
+# ------------------------------------------------------ attention at hd 112
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 96])
+def test_flash_plain_matches_pallas_at_head_dim_112(dtype, window):
+    """zamba2's shared attention: hd 112 (7 x 16), G = 1."""
+    rng = np.random.default_rng(112 + window)
+    B, H, T, hd = 2, 4, 256, 112
+    qj, qt = _both(rng.normal(size=(B, H, T, hd)), dtype)
+    kj, kt = _both(rng.normal(size=(B, H, T, hd)), dtype)
+    vj, vt = _both(rng.normal(size=(B, H, T, hd)), dtype)
+    got = flash_attention(qt, kt, vt, window=window)
+    pos_j = jnp.arange(T, dtype=jnp.int32)
+    _close(got, fa_jnp(qj, kj, vj, pos_j, pos_j, window=window), TOLS[dtype])
+    _close(got, fa_pallas(qj, kj, vj, pos_j, pos_j, window=window,
+                          block_q=128, block_k=128), TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_pallas_at_head_dim_112(dtype):
+    rng = np.random.default_rng(113)
+    B, KV, G, S, hd = 2, 4, 1, 512, 112
+    qj, qt = _both(rng.normal(size=(B, KV, G, hd)), dtype)
+    kj, kt = _both(rng.normal(size=(B, KV, S, hd)), dtype)
+    vj, vt = _both(rng.normal(size=(B, KV, S, hd)), dtype)
+    pos = S - S // 3
+    got = decode_attention(qt, kt, vt, pos=pos)
+    _close(got, dec_jnp(qj, kj, vj, jnp.arange(S, dtype=jnp.int32),
+                        jnp.int32(pos)), TOLS[dtype])
+    _close(got, dec_pallas(qj, kj, vj, pos=jnp.int32(pos), block_k=256),
+           TOLS[dtype])
+
+
+# ------------------------------------------------------------ the two scans
+
+def _ssm_inputs(rng, B, T, nh, hp, N, dtype):
+    """The sweep's inputs (test_kernels.py), as (JAX, torch) pairs."""
+    x = _both(rng.normal(size=(B, T, nh, hp)), dtype)
+    Bm = _both(rng.normal(size=(B, T, N)) * 0.5, dtype)
+    Cm = _both(rng.normal(size=(B, T, N)) * 0.5, dtype)
+    dt = _both(rng.uniform(0.001, 0.1, size=(B, T, nh)), "float32")
+    A = _both(-rng.uniform(0.5, 2.0, size=(nh,)), "float32")
+    D = _both(rng.normal(size=(nh,)), "float32")
+    return x, Bm, Cm, dt, A, D
+
+
+def _wkv_inputs(rng, B, T, H, hd, decay_shift=-1.5):
+    """The sweep's inputs (test_kernels.py); a larger `decay_shift` makes
+    the decay strong enough that a chunk's cumulative log decay passes
+    -88, where exp(-cum) would overflow f32."""
+    r, k, v = (_both(rng.normal(size=(B, T, H, hd)) * 0.5, "float32")
+               for _ in range(3))
+    lw = _both(-np.exp(rng.normal(size=(B, T, H, hd)) * 0.5 + decay_shift),
+               "float32")
+    u = _both(rng.normal(size=(H, hd)) * 0.5, "float32")
+    return r, k, v, lw, u
+
+
+@pytest.mark.parametrize("B,T,nh,hp,N,chunk", [
+    (1, 128, 2, 32, 16, 64), (2, 256, 3, 64, 64, 128), (1, 64, 1, 32, 32, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_plain_matches_oracle_and_pallas(B, T, nh, hp, N, chunk,
+                                                  dtype):
+    rng = np.random.default_rng(B * 1000 + T + nh)
+    ins = _ssm_inputs(rng, B, T, nh, hp, N, dtype)
+    y, state = ssm_scan(*(t for _, t in ins))
+    assert y.dtype == TORCH_DT[dtype] and y.shape == (B, T, nh, hp)
+    assert state.dtype == torch.float32 and state.shape == (B, nh, hp, N)
+    tol = 5 * TOLS[dtype]
+    jins = [j for j, _ in ins]
+    _close(y, ssm_jnp(*jins), tol)
+    _close(y, ssm_pallas(*jins, chunk=chunk), tol)
+
+
+@pytest.mark.parametrize("B,T,H,hd,chunk", [
+    (1, 64, 1, 32, 64), (2, 128, 2, 64, 64), (1, 192, 2, 32, 64),
+])
+def test_rwkv6_wkv_plain_matches_oracle_and_pallas(B, T, H, hd, chunk):
+    rng = np.random.default_rng(B * 1000 + T + H)
+    ins = _wkv_inputs(rng, B, T, H, hd)
+    y, state = rwkv6_wkv(*(t for _, t in ins))
+    assert y.dtype == torch.float32 and y.shape == (B, T, H, hd)
+    assert state.dtype == torch.float32 and state.shape == (B, H, hd, hd)
+    jins = [j for j, _ in ins]
+    _close(y, wkv_jnp(*jins), 1e-4)
+    _close(y, wkv_pallas(*jins, chunk=chunk), 1e-4)
+
+
+@pytest.mark.parametrize("T", [77, 200])
+def test_scans_take_ragged_lengths(T):
+    """Lengths no chunk divides: the plain versions and the models'
+    chunked twins (short last chunk) against the jnp stepwise oracles."""
+    rng = np.random.default_rng(T)
+    ins = _ssm_inputs(rng, 2, T, 3, 32, 16, "float32")
+    want = ssm_jnp(*(j for j, _ in ins))
+    x, Bm, Cm, dt, A, D = (t for _, t in ins)
+    _close(ssm_scan(x, Bm, Cm, dt, A, D)[0], want, 5 * TOLS["float32"])
+    y, _ = _ssd_chunked(dt * A, x, Bm, Cm, dt, torch.zeros(2, 3, 32, 16))
+    _close(y + D[:, None] * x, want, 5 * TOLS["float32"])
+    ins = _wkv_inputs(rng, 2, T, 2, 64)
+    want = wkv_jnp(*(j for j, _ in ins))
+    r, k, v, lw, u = (t for _, t in ins)
+    _close(rwkv6_wkv(r, k, v, lw, u)[0], want, 1e-4)
+    _close(_wkv_chunked(r, k, v, lw, u, torch.zeros(2, 2, 64, 64))[0], want,
+           1e-4)
+
+
+def test_wkv_chunked_survives_a_strong_decay():
+    """A decay whose cumulative log passes -88 within one chunk: the
+    chunked closed form takes only differences within a chunk, so nothing
+    overflows and it still matches the stepwise oracle."""
+    rng = np.random.default_rng(9)
+    ins = _wkv_inputs(rng, 1, 128, 2, 32, decay_shift=1.5)
+    assert float(np.asarray(ins[3][0]).sum(axis=1).min()) < -88 * 2
+    want = wkv_jnp(*(j for j, _ in ins))
+    r, k, v, lw, u = (t for _, t in ins)
+    got, state = _wkv_chunked(r, k, v, lw, u, torch.zeros(1, 2, 32, 32))
+    assert torch.isfinite(got).all() and torch.isfinite(state).all()
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("split", [1, 64, 100])
+def test_scans_carry_their_state(split):
+    """One call over T = two calls split at `split`, the first call's
+    final state passed to the second (1e-5), for the plain versions and
+    the chunked twins, from a nonzero initial state."""
+    rng = np.random.default_rng(split)
+    T = 150
+    x, Bm, Cm, dt, A, D = (t for _, t in _ssm_inputs(rng, 2, T, 3, 32, 16,
+                                                      "float32"))
+    s0 = torch.from_numpy(rng.normal(size=(2, 3, 32, 16)).astype(np.float32))
+
+    def ssm_plain(sl, s):
+        return ssm_scan(x[:, sl], Bm[:, sl], Cm[:, sl], dt[:, sl], A, D, s)
+
+    def ssm_chunked(sl, s):
+        y, s = _ssd_chunked(dt[:, sl] * A, x[:, sl], Bm[:, sl], Cm[:, sl],
+                            dt[:, sl], s)
+        return y + D[:, None] * x[:, sl], s
+
+    r, k, v, lw, u = (t for _, t in _wkv_inputs(rng, 2, T, 2, 32))
+    w0 = torch.from_numpy(rng.normal(size=(2, 2, 32, 32)).astype(np.float32))
+
+    def wkv_plain(sl, s):
+        return rwkv6_wkv(r[:, sl], k[:, sl], v[:, sl], lw[:, sl], u, s)
+
+    def wkv_chunked(sl, s):
+        return _wkv_chunked(r[:, sl], k[:, sl], v[:, sl], lw[:, sl], u, s)
+
+    for fn, s_init in ((ssm_plain, s0), (ssm_chunked, s0),
+                       (wkv_plain, w0), (wkv_chunked, w0)):
+        y, s = fn(slice(0, T), s_init)
+        y1, s1 = fn(slice(0, split), s_init)
+        y2, s2 = fn(slice(split, T), s1)
+        torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-5,
+                                   rtol=1e-5)
+        torch.testing.assert_close(s2, s, atol=1e-5, rtol=1e-5)
+    # The plain versions and the chunked twins agree on the final state.
+    torch.testing.assert_close(ssm_plain(slice(0, T), s0)[1],
+                               ssm_chunked(slice(0, T), s0)[1],
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(wkv_plain(slice(0, T), w0)[1],
+                               wkv_chunked(slice(0, T), w0)[1],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["ssm_scan", "rwkv6_wkv"])
+def test_scan_final_state_matches_reference_model(kind):
+    """The scans' inputs built from a JAX smoke layer (its own token shift
+    and causal conv), then the port's op against the JAX model's chunked
+    `S_out` (and its y), 1e-4: the state a prefill leaves for decode."""
+    from repro.configs import get_config as ref_get_config
+    from repro.models import mamba2 as ref_mamba2
+    from repro.models import rwkv6 as ref_rwkv6
+
+    arch = "zamba2-7b" if kind == "ssm_scan" else "rwkv6-7b"
+    cfg = ref_get_config(arch).smoke()
+    x = jnp.asarray(np.random.default_rng(5).normal(
+        size=(2, 128, cfg.d_model)).astype(np.float32))
+    if kind == "ssm_scan":
+        p = ref_mamba2.mamba2_params(jax.random.PRNGKey(5), cfg)
+        _, cache = ref_mamba2.mamba2_apply(p, cfg, x, None)
+        xin, _ = ref_mamba2._causal_conv(x @ p["wx"], p["conv"], None)
+        dt = jax.nn.softplus(x @ p["wdt"] + p["dt_bias"])
+        args = (xin.reshape(2, 128, cfg.ssm_heads, cfg.ssm_head_dim),
+                x @ p["wB"], x @ p["wC"], dt, -jnp.exp(p["A_log"]), p["D"])
+        want_s = cache["ssm"]
+    else:
+        p = ref_rwkv6.rwkv6_params(jax.random.PRNGKey(5), cfg)
+        _, cache = ref_rwkv6.rwkv6_apply(p, cfg, x, None)
+        xs = ref_rwkv6._shift(x, None)
+        mix = [x * p["mu"][i] + xs * (1 - p["mu"][i]) for i in range(5)]
+        H = cfg.d_model // 64
+        r, k, v = ((mix[i] @ p[w]).reshape(2, 128, H, 64)
+                   for i, w in enumerate(("wr", "wk", "wv")))
+        lw = -jnp.exp(p["w0"] + (mix[4] @ p["wA"]) @ p["wB"])
+        args = (r, k, v, lw.reshape(2, 128, H, 64), p["u"])
+        want_s = cache["state"]
+    t_args = [torch.from_numpy(np.array(a, np.float32)) for a in args]
+    op = ssm_scan if kind == "ssm_scan" else rwkv6_wkv
+    y, state = op(*t_args)
+    _close(state, want_s, 1e-4)
+    ref_y = (ssm_jnp if kind == "ssm_scan" else wkv_jnp)(*args)
+    _close(y, ref_y, 1e-4)

@@ -1,9 +1,13 @@
-"""The port's configs, layers and decoder against the JAX package, on the
-same inputs and the same weights (the JAX parameter tree, carried over by
-`params_from_numpy`). f32 throughout; inputs come from numpy.
+"""The port's configs, layers, token mixers and decoder against the JAX
+package, on the same inputs and the same weights (the JAX parameter tree,
+carried over by `params_from_numpy`). f32 throughout; inputs come from
+numpy.
 
 Tolerances: layers 2e-5 (one op chain in f32, summed in another order);
-the smoke decoder's last logits 1e-4 (two layers of such chains).
+the smoke decoder's logits 1e-4 (two layers of such chains); the
+recurrent mixers (RWKV6, Mamba2) 1e-4, outputs and every cache leaf: the
+states sum up to 256 steps, taken stepwise, chunk by chunk (64 steps in
+the port, the reference's CHUNK there) or in one step, in f32.
 """
 import dataclasses
 
@@ -18,13 +22,16 @@ from repro.configs import ARCH_IDS as REF_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.models import decoder as ref_decoder  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
+from repro.models import mamba2 as ref_mamba2  # noqa: E402
+from repro.models import rwkv6 as ref_rwkv6  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
-from repro_torch.models import decoder, layers  # noqa: E402
+from repro_torch.models import decoder, layers, mamba2, rwkv6  # noqa: E402
 from repro_torch.models.weights import params_from_numpy  # noqa: E402
 
 torch.set_num_threads(1)
 
 ATTENTION_ARCHS = ["qwen2-0.5b", "qwen2-1.5b", "qwen2-72b", "deepseek-7b"]
+RECURRENT_ARCHS = ["rwkv6-7b", "zamba2-7b"]
 
 
 def _t(a) -> torch.Tensor:
@@ -37,15 +44,52 @@ def _close(got: torch.Tensor, want, tol: float):
                                atol=tol, rtol=tol)
 
 
-def _shared_params(arch, seed=0):
-    """JAX init of the smoke config, with random QKV biases so the bias
-    path is exercised: (reference cfg, port cfg, JAX tree, port params)."""
+def _leaves(tree, prefix="") -> dict:
+    """Every array leaf of a (JAX or port) parameter or cache tree, by its
+    path; None subtrees have no leaves."""
+    if tree is None:
+        return {}
+    if isinstance(tree, (dict, tuple, list)):
+        items = (tree.items() if isinstance(tree, dict)
+                 else enumerate(tree))
+        out = {}
+        for k, v in items:
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _np(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().float().numpy()
+    return np.asarray(leaf, np.float32)
+
+
+def _dtype(leaf) -> str:
+    return str(leaf.dtype).replace("torch.", "")
+
+
+def _close_trees(got, want, tol: float):
+    g, w = _leaves(got), _leaves(want)
+    assert g.keys() == w.keys()
+    for name in w:
+        assert g[name].shape == w[name].shape, name
+        np.testing.assert_allclose(_np(g[name]), _np(w[name]), atol=tol,
+                                   rtol=tol, err_msg=name)
+
+
+def _shared_params(arch, seed=0, **replace):
+    """JAX init of the smoke config (with `replace`d fields), with random
+    QKV biases so the bias path is exercised: (reference cfg, port cfg,
+    JAX tree, port params)."""
     ref_cfg, cfg = ref_get_config(arch).smoke(), get_config(arch).smoke()
+    ref_cfg = dataclasses.replace(ref_cfg, **replace)
+    cfg = dataclasses.replace(cfg, **replace)
     tree = jax.tree.map(np.asarray, ref_decoder.init_params(
         jax.random.PRNGKey(seed), ref_cfg))
     rng = np.random.default_rng(seed)
     for name in ("bq", "bk", "bv"):
-        if name in tree["layers"]["attn"]:
+        if name in tree["layers"].get("attn", {}):
             shape = tree["layers"]["attn"][name].shape
             tree["layers"]["attn"][name] = (
                 0.1 * rng.normal(size=shape)).astype(np.float32)
@@ -66,7 +110,7 @@ def test_config_registry_matches_reference():
         assert port.torch_dtype == getattr(torch, ref.jdtype.name)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b",
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b",
                                   "musicgen-medium", "internvl2-26b"])
 def test_unsupported_configs_raise(arch):
     cfg = get_config(arch).smoke()
@@ -208,7 +252,7 @@ def test_smoke_decoder_logits_match_reference():
     _close(tcache["layers"][0], jcache["layers"][0], 1e-4)
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS + RECURRENT_ARCHS)
 def test_prefill_decode_matches_full_forward(arch):
     """Mirror of test_models_smoke: decoding token by token after a
     prefill reproduces one big forward pass (f32 smoke: 1e-4)."""
@@ -257,3 +301,137 @@ def test_kernel_and_chunked_paths_agree_on_decoder():
         outs.append((lg, lg2))
     for a, b in zip(*outs, strict=True):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------- RWKV6, Mamba2, hybrid
+
+def _mixer_case(mixer, seed):
+    """One token mixer of the smoke config: (reference cfg, port cfg, JAX
+    params, port params) with the JAX init's weights."""
+    arch = "rwkv6-7b" if mixer == "rwkv6" else "zamba2-7b"
+    ref_cfg, cfg = ref_get_config(arch).smoke(), get_config(arch).smoke()
+    init = (ref_rwkv6.rwkv6_params if mixer == "rwkv6"
+            else ref_mamba2.mamba2_params)
+    tree = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed), ref_cfg))
+    return (ref_cfg, cfg, jax.tree.map(jnp.asarray, tree),
+            {n: _t(a) for n, a in tree.items()})
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("T", [128, 256])
+@pytest.mark.parametrize("mixer", ["rwkv6", "mamba2"])
+def test_recurrent_mixer_matches_reference(mixer, T, use_kernels):
+    """rwkv6_apply / mamba2_apply: a prefill of T tokens from no cache,
+    then a decode step on the returned cache; outputs and every cache leaf
+    against the reference. `use_kernels` picks the kernel op (its plain
+    stepwise version on CPU tensors) or the chunked twin."""
+    ref_cfg, cfg, jp, tp = _mixer_case(mixer, seed=T)
+    ref_apply, apply = ((ref_rwkv6.rwkv6_apply, rwkv6.rwkv6_apply)
+                        if mixer == "rwkv6"
+                        else (ref_mamba2.mamba2_apply, mamba2.mamba2_apply))
+    rng = np.random.default_rng(T)
+    x = rng.normal(size=(2, T + 1, cfg.d_model)).astype(np.float32)
+    want, jcache = ref_apply(jp, ref_cfg, jnp.asarray(x[:, :T]), None)
+    got, tcache = apply(tp, cfg, _t(x[:, :T]), None, use_kernels=use_kernels)
+    _close(got, want, 1e-4)
+    _close_trees(tcache, jcache, 1e-4)
+    want, jcache = ref_apply(jp, ref_cfg, jnp.asarray(x[:, T:]), jcache)
+    got, tcache = apply(tp, cfg, _t(x[:, T:]), tcache,
+                        use_kernels=use_kernels)
+    _close(got, want, 1e-4)
+    _close_trees(tcache, jcache, 1e-4)
+
+
+RECURRENT_CASES = {
+    "rwkv6-7b": ("rwkv6-7b", {}),
+    "zamba2-7b": ("zamba2-7b", {}),                   # 1 super-block, no tail
+    "zamba2-7b-tail": ("zamba2-7b", dict(n_layers=5)),   # 2 + a tail layer
+    "mamba2-stack": ("zamba2-7b", dict(attn_every=0)),   # no shared attention
+}
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("case", list(RECURRENT_CASES))
+def test_recurrent_decoder_logits_match_reference(case, use_kernels):
+    """Smoke decoders of the recurrent families, JAX weights: prefill and
+    four decode steps give the reference's logits within 1e-4, and the
+    final cache matches the reference's leaf by leaf."""
+    arch, replace = RECURRENT_CASES[case]
+    ref_cfg, cfg, jparams, tparams = _shared_params(arch, **replace)
+    rng = np.random.default_rng(2)
+    B, T, n_dec = 2, 13, 4
+    toks = rng.integers(0, cfg.vocab_size,
+                        size=(B, T + n_dec)).astype(np.int32)
+    max_len = T + n_dec
+    want, jcache = ref_decoder.prefill(jparams, ref_cfg,
+                                       jnp.asarray(toks[:, :T]),
+                                       max_len=max_len)
+    got, tcache = decoder.prefill(tparams, cfg,
+                                  torch.from_numpy(toks[:, :T]).long(),
+                                  max_len=max_len, use_kernels=use_kernels)
+    _close(got, want, 1e-4)
+    for t in range(T, T + n_dec):
+        want, jcache = ref_decoder.decode_step(
+            jparams, ref_cfg, jcache, jnp.asarray(toks[:, t:t + 1]),
+            jnp.int32(t))
+        got, tcache = decoder.decode_step(
+            tparams, cfg, tcache, torch.from_numpy(toks[:, t:t + 1]).long(),
+            t, use_kernels=use_kernels)
+        _close(got, want, 1e-4)
+    _close_trees(tcache, jcache, 1e-4)
+
+
+@pytest.mark.parametrize("case", list(RECURRENT_CASES))
+def test_recurrent_init_matches_reference_tree(case):
+    """`init_params` and `init_cache` build the reference's trees: the
+    same leaves with the same shapes and dtypes, and the recurrent mixers'
+    constants (decay bias, bonus, lerp, dt bias, A_log, D) equal to 1e-6:
+    the reference takes log(expm1(0.01)) in f64 when another module of
+    the process has turned on jax_enable_x64, one f32 ulp (2e-7) off its
+    f32 value."""
+    arch, replace = RECURRENT_CASES[case]
+    ref_cfg = dataclasses.replace(ref_get_config(arch).smoke(), **replace)
+    cfg = dataclasses.replace(get_config(arch).smoke(), **replace)
+    jtree = ref_decoder.init_params(jax.random.PRNGKey(0), ref_cfg)
+    ttree = decoder.init_params(torch.Generator().manual_seed(0), cfg)
+    want, got = _leaves(jtree), _leaves(ttree)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        assert tuple(got[name].shape) == w.shape, name
+        if name.rsplit("/", 1)[-1] in ("w0", "u", "mu", "dt_bias", "A_log",
+                                       "D", "ln1", "ln2", "ln",
+                                       "final_norm"):
+            np.testing.assert_allclose(_np(got[name]), _np(w), rtol=1e-6,
+                                       err_msg=name)
+    # The cache in bf16, where the states stay f32 and the rest follows
+    # the config's dtype.
+    ref_cfg = dataclasses.replace(ref_cfg, dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    jcache = ref_decoder.init_cache(ref_cfg, 2, 16)
+    tcache = decoder.init_cache(cfg, 2, 16, "cpu")
+    want, got = _leaves(jcache), _leaves(tcache)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        assert tuple(got[name].shape) == w.shape, name
+        assert _dtype(got[name]) == _dtype(w), name
+        assert not _np(got[name]).any(), name
+
+
+def test_recurrent_kernel_and_chunked_paths_agree_on_decoder():
+    """`use_kernels=False` (the chunked twins) and the scan kernels' plain
+    versions give the same zamba2 and rwkv6 logits on the CPU, at a
+    prompt longer than one chunk and not a multiple of it."""
+    for arch in RECURRENT_ARCHS:
+        cfg = get_config(arch).smoke()
+        params = decoder.init_params(torch.Generator().manual_seed(3), cfg)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, size=(2, 150)))
+        outs = []
+        for use_kernels in (True, False):
+            lg, cache = decoder.prefill(params, cfg, toks, max_len=152,
+                                        use_kernels=use_kernels)
+            lg2, _ = decoder.decode_step(params, cfg, cache, toks[:, :1],
+                                         150, use_kernels=use_kernels)
+            outs.append((lg, lg2))
+        for a, b in zip(*outs, strict=True):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -32,18 +32,19 @@ def _requests(cfg, lens, new_tokens):
             for i, n in enumerate(lens)]
 
 
-def test_engine_matches_reference_greedy_tokens():
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-7b", "zamba2-7b"])
+def test_engine_matches_reference_greedy_tokens(arch):
     """Mirror of test_training_serving's engine test, held against the
     reference engine: identical batch (ragged prompts, left-padded) and
-    identical weights give identical greedy tokens."""
+    identical weights give identical greedy tokens. The prompts (8, 5,
+    11) are shorter than both scans' chunks, which the reference needs."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_config as ref_get_config
     from repro.models import decoder as ref_decoder
     from repro.serving.engine import Engine as RefEngine
     from repro.serving.engine import Request as RefRequest
 
-    ref_cfg, cfg = ref_get_config("qwen2-0.5b").smoke(), \
-        get_config("qwen2-0.5b").smoke()
+    ref_cfg, cfg = ref_get_config(arch).smoke(), get_config(arch).smoke()
     tree = jax.tree.map(np.asarray, ref_decoder.init_params(
         jax.random.PRNGKey(0), ref_cfg))
     lens, new = [8, 5, 11], 6
@@ -68,8 +69,8 @@ def test_engine_rejects_what_it_cannot_serve():
         eng.generate(_requests(cfg, [4, 4, 4], 2))
     with pytest.raises(ValueError, match="max_len"):
         eng.generate(_requests(cfg, [12], 8))
-    with pytest.raises(NotImplementedError):
-        Engine(get_config("rwkv6-7b").smoke(), eng.params, 16, 2)
+    with pytest.raises(NotImplementedError):     # MoE
+        Engine(get_config("kimi-k2-1t-a32b").smoke(), eng.params, 16, 2)
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):
@@ -77,6 +78,15 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
                        "--prompt-len", "8", "--new-tokens", "4"]) == 0
     out = capsys.readouterr().out
     assert "AGH plan" in out and "served 2 requests" in out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_launcher_serves_recurrent_archs_on_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--requests", "2", "--prompt-len", "70",
+                       "--new-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"served 2 requests on {arch}-smoke" in out
 
 
 def test_launcher_raises_without_cuda():
