@@ -32,7 +32,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   6. time each kernel at the serving shapes with CUDA events, beside its
      plain version, one PyTorch call computing the same function where
      there is one (`F.scaled_dot_product_attention`, a yardstick the port
-     never calls) and the least time the card could take (its bound);
+     never calls), the least time the card could take (its bound) and, for
+     the two attention kernels, their time before the Hopper redesign
+     (BEFORE_REDESIGN_MS, copied from PERF.md and printed in the table
+     only, never in the JSON line);
   7. trace one more served batch of each model with torch.profiler: the
      device's busy share of the batch's wall time and the kernels that
      take the most.
@@ -73,7 +76,7 @@ NEW_TOKENS = 32
 # Kernels are held against their plain versions run in f32 on the same
 # inputs (bf16 inputs upcast exactly). f32 kernels: IEEE f32 on both sides,
 # 2e-5. bf16 kernels round the output to bf16 (2**-9 relative) and the
-# flash kernel also rounds P to bf16 before P V, so per element
+# attention kernels also round P to bf16 before P V, so per element
 # atol 4e-3 / rtol 1.6e-2 (four bf16 roundings), and per query row
 # |got - want|_2 / |want|_2 <= 1e-2. The roundings give a few 1e-3 there;
 # phase 3 shows that the row bound rejects two faults the per-element one
@@ -696,6 +699,14 @@ def _time_scan(name, ins):
                       + "x".join(str(n) for n in s0.shape))
 
 
+# The attention kernels' phase-6 times before their Hopper redesign (the
+# kernel table of PERF.md, same shapes, NVIDIA H100 80GB HBM3 at 700 W):
+# (qwen2-0.5b's shape, zamba2-7b's hd-112 shape). Not measured by this run,
+# so printed beside the table for reading only and kept out of the JSON line.
+BEFORE_REDESIGN_MS = {"flash_attention": (0.3246, 1.4885),
+                      "decode_attention": (0.0271, 0.4944)}
+
+
 SOURCES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:83",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:79",
@@ -746,7 +757,10 @@ def time_kernels(main, errs, launches_by_path):
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        print(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms "
+        before = BEFORE_REDESIGN_MS.get(r["name"])
+        was = (f" (PR 12, from PERF.md: {before[0]:.4f} ms)" if before
+               else "")
+        print(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms{was} "
               f"(eager {r['eager_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
@@ -754,7 +768,8 @@ def time_kernels(main, errs, launches_by_path):
         if "hd112" in r:
             h = r["hd112"]
             print(f"    at hd 112 [{h['shape']}]: {h['ms']:.4f} ms "
-                  f"(eager {h['eager_ms']:.4f} ms), plain "
+                  f"(PR 12, from PERF.md: {before[1]:.4f} ms) (eager "
+                  f"{h['eager_ms']:.4f} ms), plain "
                   f"{h['plain_ms']:.4f} ms, SDPA {h['library_ms']:.4f} ms, "
                   f"bound {h['bound_ms']:.4f} ms ({h['bound_by']})")
     return rows

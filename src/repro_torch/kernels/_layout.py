@@ -1,0 +1,28 @@
+"""The memory layout the attention kernels read by 16-byte copies (TMA
+boxes in prefill, cp.async in decode): a 16-byte-aligned base, a unit
+stride on the last axis, and every other stride a multiple of 16 bytes.
+A dimension of extent 1 never moves, so its stride does not count."""
+from __future__ import annotations
+
+import torch
+
+
+def aligned16(shape, strides, itemsize: int, data_ptr: int) -> bool:
+    """Whether a tensor of this shape, element strides, element size and
+    base address can be read in 16-byte pieces."""
+    if data_ptr % 16 or (shape[-1] > 1 and strides[-1] != 1):
+        return False
+    return all(n == 1 or (s * itemsize) % 16 == 0
+               for n, s in zip(shape[:-1], strides[:-1]))
+
+
+def check_aligned(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise ValueError naming the first tensor `kernel` cannot read."""
+    for name, t in tensors.items():
+        if not aligned16(t.shape, t.stride(), t.element_size(),
+                         t.data_ptr()):
+            raise ValueError(
+                f"{kernel}: {name} must have a 16-byte-aligned base and "
+                f"16-byte-multiple strides (unit last stride), got address "
+                f"{t.data_ptr():#x}, strides {t.stride()}, "
+                f"{t.element_size()}-byte elements")

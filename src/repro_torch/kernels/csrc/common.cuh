@@ -34,5 +34,20 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per device,
+// not on every launch: `done` is the caller's static bit mask of devices.
+template <typename K>
+cudaError_t set_smem_once(K kernel, int bytes, unsigned long long* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (*done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done |= bit;
+  return err;
+}
+
 // dtype codes passed from Python.
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };

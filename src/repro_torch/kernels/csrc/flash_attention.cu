@@ -11,50 +11,60 @@
 // admissible key averages v over all keys. m, l and the accumulator are f32;
 // l is clamped at 1e-30; the output has the input's type.
 //
-// Design.
-//  * Grid (ceil(Tq / BQ), H, B): one block per query tile of one head. The
-//    TPU kernel's sequential K grid axis becomes a loop inside the block,
-//    which carries m, l and the output accumulator in registers.
-//  * Operands are read through their strides, so the model hands over its
-//    [B, T, H|KV, hd] activations as [B, H|KV, T, hd] views with no copy,
-//    and the output is written through its own strides.
-//  * Tq and Tk may be any length: query rows past Tq are not stored and
-//    keys past Tk are excluded outright (logit -inf).
-//  * A K tile is skipped when every (query, key) pair in it is masked by
-//    the causal/window bound, judged from the tile's position range. That
-//    is exact for every row that has an admissible key; if some row has
-//    none, the block runs the sweep again without skipping, so that row
-//    gets the reference's uniform average.
-//  * Two kernels share that structure (64-query x 64-key tiles):
-//    - f32 inputs: scalar IEEE f32 FMAs on the CUDA cores (no TF32, which
-//      the 2e-5 check forbids). 256 threads hold the 64 x 64 logit tile as
-//      4 x 4 values each (rows ty + 16 i, columns tx + 16 j): a row lives
-//      in 16 adjacent lanes and its max and sum are 4-step shuffles. Q and
-//      K sit transposed in shared memory with an odd stride, free of bank
-//      conflicts.
-//    - bf16 inputs: the tensor cores, through mma.sync m16n8k16 with f32
-//      accumulators. 4 warps own 16 query rows each; Q's fragments stay in
-//      registers for the whole sweep, S = Q K^T lands in registers in the
-//      accumulator layout, which is also the A-operand layout of P, so P V
-//      runs from registers too (P rounded to bf16, as FlashAttention-2
-//      does). Shared-memory rows are padded by 8 elements so the 32-bit
-//      fragment loads are free of bank conflicts.
-//
 // What bounds it on the H100: at prefill lengths attention does ~T/2
 // multiply-adds per byte it reads, far above the card's ~295 FLOP/byte
-// ridge, so it is bound by operations. The bf16 kernel reaches the tensor
-// cores through mma.sync; wgmma with TMA-fed, double-buffered tiles (so a
-// tile's loads overlap the previous tile's products) is the next step. The
-// f32 kernel is bound by the CUDA cores' ~67 TFLOP/s and is there for the
-// f32 checks, not for speed.
+// ridge, so it is bound by operations: the tensor cores' 989 TFLOP/s in
+// bf16, reached only through wgmma fed from shared memory without stalls.
+//
+// Both kernels read the operands through their strides (the model hands
+// over its [B, T, H|KV, hd] activations as [B, H|KV, T, hd] views), take
+// any Tq and Tk (keys past Tk get the logit -inf, query rows past Tq are
+// not stored), and skip a K tile whose every (query, key) pair is masked
+// by the causal/window bound. That skip is exact for every row with an
+// admissible key; if some row has none, the block sweeps again without
+// skipping, so that row gets the reference's uniform average.
+//
+// bf16 design (flash_fwd_wgmma_kernel): a block of 3 warpgroups owns 128
+// query rows of one head.
+//  * Warpgroup 0 is the producer; one of its threads issues TMA loads
+//    (tensor maps over the strided [B, H|KV, T, hd] views, built on the
+//    host per call, 128-byte swizzle, out-of-range rows zero-filled). Q is
+//    loaded once; K and V tiles of 128 keys stream through a ring of 3
+//    stages (2 at hd > 64) guarded by full/empty mbarriers, so the next
+//    tile is in flight while one is multiplied. The producer also finds
+//    each tile's position range with warp reductions (no block barrier;
+//    the positions are loaded a tile ahead), skips masked tiles, and flags
+//    the tiles that straddle the diagonal, the window edge or the ragged
+//    end: only those get per-element masks.
+//  * Warpgroups 1 and 2 consume, 64 query rows each: S = Q K^T by wgmma
+//    m64n128k16 with both operands in shared memory (K-major); the online
+//    softmax in registers (exp2 of pre-scaled logits on the SFU; O is
+//    rescaled only when a row maximum moved); P rounded to bf16 and kept
+//    in registers as wgmma's A operand; O += P V by wgmma m64n64k16 with V
+//    in its row layout (the transposed-B mode for 16-bit types; no
+//    transpose on store). Accumulators are f32.
+//  * Head dims are held in 64-column (128-byte) swizzle blocks, zero-padded
+//    in shared memory: hd 112 to 128, hd 32 to 64. S = Q K^T runs only the
+//    real 16-deep steps; P V runs whole 64-column products, so 14 % of its
+//    products at hd 112 fall on zero columns and are dropped.
+//  * Epilogue: O / l is staged in shared memory (rows padded by 16 bytes,
+//    free of bank conflicts) and written with 16-byte stores into the
+//    output's strided view.
+//
+// f32 design (flash_fwd_kernel): scalar IEEE f32 FMAs on the CUDA cores (no
+// TF32, which the 2e-5 check forbids), 64 x 64 tiles, 256 threads holding
+// 4 x 4 logits each. It is bound by the CUDA cores' ~67 TFLOP/s and exists
+// for the f32 checks, not for speed.
 
 #include <climits>
 #include <math.h>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
@@ -262,108 +272,191 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bf16: the same algorithm on the tensor cores (mma.sync m16n8k16, f32
-// accumulators). 4 warps, each owning 16 query rows of the 64-row tile.
+// bf16 on Hopper: TMA ring + wgmma, warp-specialised (see the note above).
 // ---------------------------------------------------------------------------
 
-constexpr int MNT = 128;     // threads per block (4 warps x 16 rows = BQ)
+constexpr int WBQ = 128;      // query rows per block (two consumer warpgroups)
+constexpr int WBK = 128;      // keys per tile
+constexpr int WSTAGES = 3;    // most K/V ring stages
+constexpr int WNT = 384;      // producer warpgroup + two consumer warpgroups
+constexpr int SW = 128;       // bytes per swizzled row (64 bf16)
 
 template <int HD>
-constexpr int mma_smem_bytes() {
-  return (BQ * (HD + 8)      // Qs: [BQ][HD + 8]  row-major, padded
-          + BK * (HD + 8)    // Ks: [BK][HD + 8]
-          + HD * (BK + 8))   // Vt: [HD][BK + 8]  V transposed
-         * 2;
-}
+struct WCfg {
+  static constexpr int BK = WBK;
+  // Ring stages: 3, or 2 where three tiles of 128 columns would not fit.
+  static constexpr int STAGES = HD > 64 ? 2 : WSTAGES;
+  static constexpr int NCB = (HD + 63) / 64;        // 64-column blocks
+  static constexpr int Q_CB = WBQ * SW;             // bytes of one Q block
+  static constexpr int T_CB = BK * SW;              // bytes of one K/V block
+  static constexpr int Q_BYTES = NCB * Q_CB;
+  static constexpr int T_BYTES = NCB * T_CB;        // one K or V tile
+  static constexpr int O_LD = HD + 8;               // staging row (bf16)
+  static constexpr int O_BYTES = 64 * O_LD * 2;     // per consumer warpgroup
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * T_BYTES;
+  static constexpr int OFF_O = OFF_V + STAGES * T_BYTES;
+  static constexpr int SMEM = OFF_O + 2 * O_BYTES + 1024;  // + alignment slack
+};
 
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct WShared {              // the small, statically allocated part
+  uint64_t full[WSTAGES], empty[WSTAGES], q_full, decide;
+  int kpos[WSTAGES][WBK];     // the tile's key positions
+  int tile[WSTAGES];          // tile index, -1 marks the end of a sweep
+  int masked[WSTAGES];        // 1: the tile needs per-element masks
+  int lost;                   // some row met no admissible key
+};
 
-// Two adjacent bf16 in shared memory as one 32-bit fragment register.
-__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layout of m16n8k16 (PTX ISA), with g = lane / 4, t = lane % 4:
-//   A regs: (row g, k 2t..2t+1), (row g+8, k 2t..), (row g, k 2t+8..),
-//           (row g+8, k 2t+8..);   B regs: (k 2t..2t+1, col g), (k 2t+8.., col g)
-//   C: c0,c1 = (row g, col 2t, 2t+1), c2,c3 = (row g+8, col 2t, 2t+1).
-// The C layout of two adjacent 8-key tiles of S is the A layout of P for
-// the 16 keys they span, so P never leaves the registers.
 template <int HD>
-__global__ void __launch_bounds__(MNT) flash_fwd_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    int Tq, int Tk, int G, int window, float scale,
-    Strides sq, Strides sk, Strides sv, Strides so) {
-  static_assert(HD % 16 == 0 && BQ == 4 * 16 && BK == 64, "tile shape");
-  constexpr int LDQ = HD + 8, LDV = BK + 8;   // bf16 elements per smem row
-  constexpr int KC = HD / 16;                 // k-chunks of Q K^T
-  constexpr int NO = HD / 8;                  // 8-column tiles of O
+__global__ void __launch_bounds__(WNT, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    const int* __restrict__ q_pos, const int* __restrict__ k_pos, int Tq,
+    int Tk, int G, int window, float scale_log2, Strides so) {
+  using C = WCfg<HD>;
   using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ WShared sh;
+  // Swizzle atoms must sit on 1024-byte boundaries.
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem;
+  unsigned char* Ks = smem + C::OFF_K;
+  unsigned char* Vs = smem + C::OFF_V;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LDQ;
-  bf16* Vt = Ks + BK * LDQ;
-  __shared__ int qpos_s[BQ];
-  __shared__ int kpos_s[BK];
-  __shared__ int red_s[4];
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  // Heavier causal tiles (later queries) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WBQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / G;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + hk * sk.h;
-  const bf16* vb = v + b * sv.b + hk * sv.h;
-  bf16* ob = o + b * so.b + h * so.h;
-  const bf16 zero = __float2bfloat16(0.f);
-
-#pragma unroll 8
-  for (int it = 0; it < BQ * HD / MNT; ++it) {
-    const int idx = tid + it * MNT;
-    const int r = idx / HD, d = idx % HD;
-    const int qi = q0 + r;
-    Qs[r * LDQ + d] = qi < Tq ? qb[qi * sq.t + d * sq.d] : zero;
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&sh.full[s], 1);
+      mbar_init(&sh.empty[s], 8);        // the 8 consumer warps
+    }
+    mbar_init(&sh.q_full, 1);
+    mbar_init(&sh.decide, 8);
+    sh.lost = 0;
+    mbar_init_fence();
   }
-  int qp_mine = 0;
-  const bool q_valid = tid < BQ && q0 + tid < Tq;
-  if (q_valid) qp_mine = q_pos[q0 + tid];
-  if (tid < BQ) qpos_s[tid] = qp_mine;
-  int qmin, qmax;
-  range64(tid, q_valid, qp_mine, red_s, &qmin, &qmax);  // syncs: Qs is ready
+  __syncthreads();
 
-  const int r0 = warp * 16 + g;        // this thread's rows: r0 and r0 + 8
-  uint32_t qa[KC][4];
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid >= 32) return;
+    if (lane == 0) {         // Q first: it depends on nothing
+      mbar_arrive_expect_tx(&sh.q_full, C::Q_BYTES);
+      for (int cb = 0; cb < C::NCB; ++cb)
+        tma_load_4d(Qs + cb * C::Q_CB, &tq, &sh.q_full, cb * 64, q0, h, b);
+    }
+    // The block's query positions and the first tile's key positions are
+    // loaded together; each later tile's key positions one tile ahead, so
+    // their latency hides behind the previous tile's issue.
+    constexpr int BK = C::BK, PL = BK / 32;          // positions per lane
+    int nxt[PL];
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const bf16* p = Qs + r0 * LDQ + kc * 16 + 2 * t;
-    qa[kc][0] = ld2(p);
-    qa[kc][1] = ld2(p + 8 * LDQ);
-    qa[kc][2] = ld2(p + 8);
-    qa[kc][3] = ld2(p + 8 * LDQ + 8);
+    for (int j = 0; j < PL; ++j)
+      nxt[j] = lane + 32 * j < Tk ? k_pos[lane + 32 * j] : 0;
+    int qmn = INT_MAX, qmx = INT_MIN;
+#pragma unroll
+    for (int r = lane; r < WBQ; r += 32)
+      if (q0 + r < Tq) {
+        const int p = q_pos[q0 + r];
+        qmn = min(qmn, p);
+        qmx = max(qmx, p);
+      }
+    qmn = __reduce_min_sync(0xffffffffu, qmn);
+    qmx = __reduce_max_sync(0xffffffffu, qmx);
+    const int n_kt = (Tk + BK - 1) / BK;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int pass = 0; pass < 2; ++pass) {
+      if (pass == 1) {
+#pragma unroll
+        for (int j = 0; j < PL; ++j)
+          nxt[j] = lane + 32 * j < Tk ? k_pos[lane + 32 * j] : 0;
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * BK;
+        int cur[PL], lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+        for (int j = 0; j < PL; ++j) {
+          cur[j] = nxt[j];
+          if (k0 + lane + 32 * j < Tk) {
+            lo = min(lo, cur[j]);
+            hi = max(hi, cur[j]);
+          }
+          const int kn = k0 + BK + lane + 32 * j;
+          if (kt + 1 < n_kt) nxt[j] = kn < Tk ? k_pos[kn] : 0;
+        }
+        const int kmn = __reduce_min_sync(0xffffffffu, lo);
+        const int kmx = __reduce_max_sync(0xffffffffu, hi);
+        if (pass == 0 &&
+            (kmn > qmx ||
+             (window > 0 && (long long)kmx <= (long long)qmn - window)))
+          continue;  // every pair in this tile is masked
+        const bool interior =
+            k0 + BK <= Tk && kmx <= qmn &&
+            (window <= 0 || (long long)kmn > (long long)qmx - window);
+        mbar_wait(&sh.empty[stage], phase ^ 1);
+#pragma unroll
+        for (int j = 0; j < PL; ++j) sh.kpos[stage][lane + 32 * j] = cur[j];
+        if (lane == 0) {
+          sh.tile[stage] = kt;
+          sh.masked[stage] = !interior;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sh.full[stage], 2 * C::T_BYTES);
+          unsigned char* kd = Ks + stage * C::T_BYTES;
+          unsigned char* vd = Vs + stage * C::T_BYTES;
+          for (int cb = 0; cb < C::NCB; ++cb) {
+            tma_load_4d(kd + cb * C::T_CB, &tk, &sh.full[stage], cb * 64, k0,
+                        hk, b);
+            tma_load_4d(vd + cb * C::T_CB, &tv, &sh.full[stage], cb * 64, k0,
+                        hk, b);
+          }
+        }
+        if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+      }
+      // End of the sweep: a stage with no data.
+      mbar_wait(&sh.empty[stage], phase ^ 1);
+      if (lane == 0) {
+        sh.tile[stage] = -1;
+        mbar_arrive(&sh.full[stage]);
+      }
+      if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+      if (pass == 0) {
+        mbar_wait(&sh.decide, 0);
+        if (!*static_cast<volatile int*>(&sh.lost)) break;
+      }
+    }
+    return;
   }
-  const int qp[2] = {qpos_s[r0], qpos_s[r0 + 8]};
 
-  float acc[NO][4];
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;                     // consumer 0 or 1
+  const int wtid = tid - 128 * wg;           // thread within the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = cw * 64 + (wtid >> 5) * 16 + g;   // rows r0 and r0 + 8
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qp[i] = q0 + r0 + 8 * i < Tq ? q_pos[q0 + r0 + 8 * i] : 0;
+  const uint32_t q_base = smem_u32(Qs) + cw * 64 * SW;
+  const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+
+  constexpr int NO = C::NCB * 32;            // O accumulator registers
+  float acc[NO];
   float m_i[2], l_i[2];
-  const int n_kt = (Tk + BK - 1) / BK;
+  int stage = 0;
+  uint32_t phase = 0;
+  mbar_wait(&sh.q_full, 0);
 
   for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
@@ -372,166 +465,233 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma_kernel(
       l_i[i] = 0.f;
     }
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+    for (int x = 0; x < NO; ++x) acc[x] = 0.f;
 
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int k0 = kt * BK;
-      __syncthreads();  // the previous tile's Ks/Vt/red_s are consumed
-      const bool k_valid = tid < BK && k0 + tid < Tk;
-      int kp_mine = 0;
-      if (k_valid) kp_mine = k_pos[k0 + tid];
-      if (tid < BK) kpos_s[tid] = kp_mine;
-      int kmin, kmax;
-      range64(tid, k_valid, kp_mine, red_s, &kmin, &kmax);
-      if (pass == 0 && (kmin > qmax ||
-                        (window > 0 &&
-                         (long long)kmax <= (long long)qmin - window)))
-        continue;  // every pair in this tile is masked
-
-#pragma unroll 8
-      for (int it = 0; it < BK * HD / MNT; ++it) {
-        const int idx = tid + it * MNT;
-        const int j = idx / HD, d = idx % HD;
-        const int kk = k0 + j;
-        const bool in = kk < Tk;
-        Ks[j * LDQ + d] = in ? kb[kk * sk.t + d * sk.d] : zero;
-        Vt[d * LDV + j] = in ? vb[kk * sv.t + d * sv.d] : zero;
+    for (;;) {
+      mbar_wait(&sh.full[stage], phase);
+      const int kt = sh.tile[stage];
+      if (kt < 0) {
+        if (lane == 0) mbar_arrive(&sh.empty[stage]);
+        if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+        break;
       }
-      __syncthreads();
-
-      // S = Q K^T: 8 tiles of 8 keys.
-      float s[8][4];
+      const uint32_t kst = k_base + stage * C::T_BYTES;
+      const uint32_t vst = v_base + stage * C::T_BYTES;
+      constexpr int BK = C::BK, NS = BK / 2;      // S registers
+      float s[NS];
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          const bf16* p = Ks + (n * 8 + g) * LDQ + kc * 16 + 2 * t;
-          mma_bf16(s[n], qa[kc], ld2(p), ld2(p + 8));
-        }
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        const uint64_t da =
+            sw128_desc(q_base + (kk >> 2) * C::Q_CB + off, 16, 1024);
+        const uint64_t db =
+            sw128_desc(kst + (kk >> 2) * C::T_CB + off, 16, 1024);
+        wgmma_ss_m64n128(s, da, db, kk > 0);
       }
-
-      // Mask, online softmax (rows r0 and r0 + 8 live in 4 adjacent lanes).
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NS>(s);
       float mx[2] = {-INFINITY, -INFINITY};
+      if (sh.masked[stage]) {
+        const int* kp = sh.kpos[stage];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = n * 8 + 2 * t + (c & 1), i = c >> 1;
-          float x = s[n][c] * scale;
-          if (k0 + key >= Tk) {
-            x = -INFINITY;
+        for (int x = 0; x < NS; ++x) {
+          const int i = (x >> 1) & 1;
+          const int col = 8 * (x >> 2) + 2 * t + (x & 1);
+          float v = s[x] * scale_log2;
+          if (kt * BK + col >= Tk) {
+            v = -INFINITY;
           } else {
-            const int kp = kpos_s[key];
-            if (!(kp <= qp[i] && (window <= 0 || kp > qp[i] - window)))
-              x = kNegInf;
+            const int p = kp[col];
+            if (!(p <= qp[i] && (window <= 0 || p > qp[i] - window)))
+              v = kNegInf;
           }
-          s[n][c] = x;
-          mx[i] = fmaxf(mx[i], x);
+          s[x] = v;
+          mx[i] = fmaxf(mx[i], v);
         }
-      float alpha[2], rs[2] = {0.f, 0.f};
+      } else {
+#pragma unroll
+        for (int x = 0; x < NS; ++x) {
+          s[x] *= scale_log2;
+          mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+        }
+      }
+      float alpha[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
         const float m_new = fmaxf(m_i[i], mx[i]);
-        alpha[i] = expf(m_i[i] - m_new);
+        alpha[i] = fast_exp2(m_i[i] - m_new);
         m_i[i] = m_new;
       }
+      // Once the row maxima settle, alpha is 1 and the rescale (exact
+      // either way) is skipped for the whole warp.
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+        for (int i = 0; i < 2; ++i) l_i[i] *= alpha[i];   // this lane's share
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[n][c] = expf(s[n][c] - m_i[c >> 1]);
-          rs[c >> 1] += s[n][c];
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-        l_i[i] = l_i[i] * alpha[i] + rs[i];
+        for (int x = 0; x < NO; ++x) acc[x] *= alpha[(x >> 1) & 1];
       }
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
+      for (int x = 0; x < NS; ++x) {
+        const int i = (x >> 1) & 1;
+        s[x] = fast_exp2(s[x] - m_i[i]);
+        l_i[i] += s[x];
       }
-
-      // O += P V, P rounded to bf16 in the A layout.
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int kc = 0; kc < BK / 16; ++kc) {
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-            pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-            pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-            pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+      for (int kc = 0; kc < BK / 16; ++kc)
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          const bf16* p = Vt + (n * 8 + g) * LDV + kc * 16 + 2 * t;
-          mma_bf16(acc[n], pa, ld2(p), ld2(p + 8));
-        }
-      }
+        for (int r = 0; r < 4; ++r)
+          pa[kc][r] = pack_bf16x2(s[8 * kc + 2 * r], s[8 * kc + 2 * r + 1]);
+      wgmma_fence();
+      fence_regs<NO>(acc);
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+        for (int cb = 0; cb < C::NCB; ++cb)
+          wgmma_rs_m64n64_tb(acc + 32 * cb, pa[kc],
+                             sw128_desc(vst + cb * C::T_CB + kc * 2048,
+                                        C::T_CB, 1024),
+                             1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NO>(acc);
+      if (lane == 0) mbar_arrive(&sh.empty[stage]);
+      if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
     }
 
-    int lost = 0;
+    if (pass == 0) {
+      // Only a row that met no admissible key still has m == -1e30.
+      bool lost = false;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (q0 + r0 + 8 * i < Tq && m_i[i] <= kNegInf) lost = 1;
-    if (!__syncthreads_or(lost)) break;
+      for (int i = 0; i < 2; ++i)
+        lost |= q0 + r0 + 8 * i < Tq && m_i[i] <= kNegInf;
+      if (__any_sync(0xffffffffu, lost) && lane == 0) atomicOr(&sh.lost, 1);
+      if (lane == 0) mbar_arrive(&sh.decide);
+      mbar_wait(&sh.decide, 0);
+      if (!*static_cast<volatile int*>(&sh.lost)) break;
+    }
   }
 
+  // Epilogue: O / l through shared memory, 16-byte stores.
+  bf16* Os = reinterpret_cast<bf16*>(smem + C::OFF_O + cw * C::O_BYTES);
+  float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + r0 + 8 * i;
-    if (qi >= Tq) continue;
-    const float l = fmaxf(l_i[i], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      bf16* out = ob + qi * so.t + (n * 8 + 2 * t) * so.d;
-      out[0] = __float2bfloat16(acc[n][2 * i] / l);
-      out[so.d] = __float2bfloat16(acc[n][2 * i + 1] / l);
-    }
+    float l = l_i[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / fmaxf(l, 1e-30f);
   }
+  const int rl = r0 - cw * 64;               // row within the warpgroup
+#pragma unroll
+  for (int x = 0; x < NO; x += 2) {
+    const int i = (x >> 1) & 1;
+    const int col = 8 * (x >> 2) + 2 * t;
+    if (col < HD)
+      *reinterpret_cast<uint32_t*>(Os + (rl + 8 * i) * C::O_LD + col) =
+          pack_bf16x2(acc[x] * inv[i], acc[x + 1] * inv[i]);
+  }
+  named_barrier(1 + cw, 128);
+  constexpr int CH = HD / 8;                 // 16-byte chunks per row
+  bf16* ob = o + b * so.b + h * so.h;
+  for (int idx = wtid; idx < 64 * CH; idx += 128) {
+    const int r = idx / CH, c = idx % CH;
+    const int qi = q0 + cw * 64 + r;
+    if (qi < Tq)
+      *reinterpret_cast<uint4*>(ob + qi * so.t + c * 8) =
+          *reinterpret_cast<const uint4*>(Os + r * C::O_LD + c * 8);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime's
+// entry-point table (no libcuda link).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A tensor map over the strided bf16 view [B, heads, T, hd] (dims innermost
+// first: hd, T, heads, B), boxes of 64 columns x `rows` rows, 128-byte
+// swizzle, out-of-range elements read as zero. A dim of extent 1 never
+// moves, so its stride is replaced by a valid one.
+bool make_map(CUtensorMap* map, const void* base, int hd, int T, int heads,
+              int B, Strides s, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t fallback = (cuuint64_t)hd * 2;
+  cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)T, (cuuint64_t)heads,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {T > 1 ? (cuuint64_t)s.t * 2 : fallback,
+                           heads > 1 ? (cuuint64_t)s.h * 2 : fallback,
+                           B > 1 ? (cuuint64_t)s.b * 2 : fallback};
+  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       const int* q_pos, const int* k_pos, int B, int H,
-                       int KV, int Tq, int Tk, int window, float scale,
-                       Strides sq, Strides sk, Strides sv, Strides so,
-                       cudaStream_t stream) {
-  const int smem = mma_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         const int* q_pos, const int* k_pos, int B, int H,
+                         int KV, int Tq, int Tk, int window, float scale,
+                         Strides sq, Strides sk, Strides sv, Strides so,
+                         cudaStream_t stream) {
+  static unsigned long long done = 0;
+  const int smem = WCfg<HD>::SMEM;
+  cudaError_t err = set_smem_once(flash_fwd_wgmma_kernel<HD>, smem, &done);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_mma_kernel<HD><<<grid, MNT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      q_pos, k_pos, Tq, Tk, H / KV, window, scale, sq, sk, sv, so);
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, HD, Tq, H, B, sq, WBQ) ||
+      !make_map(&tk, k, HD, Tk, KV, B, sk, WCfg<HD>::BK) ||
+      !make_map(&tv, v, HD, Tk, KV, B, sv, WCfg<HD>::BK))
+    return cudaErrorInvalidValue;
+  dim3 grid((Tq + WBQ - 1) / WBQ, H, B);
+  flash_fwd_wgmma_kernel<HD><<<grid, WNT, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), q_pos, k_pos, Tq, Tk,
+      H / KV, window, scale * 1.4426950408889634f, so);
   return cudaGetLastError();
 }
 
-// f32 goes to the scalar kernel, bf16 to the tensor-core one.
+// f32 goes to the scalar kernel, bf16 to the wgmma one.
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* q_pos, const int* k_pos, int B, int H, int KV,
                    int Tq, int Tk, int window, float scale, Strides sq,
                    Strides sk, Strides sv, Strides so, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_mma<HD>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk, window,
-                          scale, sq, sk, sv, so, stream);
+    return launch_wgmma<HD>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk,
+                            window, scale, sq, sk, sv, so, stream);
   } else {
+    static unsigned long long done = 0;
     const int smem = smem_floats<HD>() * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    cudaError_t err = set_smem_once(flash_fwd_kernel<T, HD>, smem, &done);
     if (err != cudaSuccess) return err;
     dim3 grid((Tq + BQ - 1) / BQ, H, B);
     flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(

@@ -3,9 +3,11 @@
 The kernel is CUDA C++ in `kernels/csrc/flash_attention.cu`, which carries
 the design note: it replaces `repro/kernels/flash_attention/kernel.py::
 flash_attention` and is bound by operations at prefill lengths; bf16
-inputs run on the tensor cores (mma.sync), f32 inputs in IEEE f32 on the
-CUDA cores. This module checks the operands, allocates the output and
-launches the kernel on the current stream through its C entry point.
+inputs stream through TMA into a shared-memory ring and run on the tensor
+cores (wgmma), f32 inputs run in IEEE f32 on the CUDA cores. This module
+checks the operands (TMA needs 16-byte-aligned bases and strides),
+allocates the output and launches the kernel on the current stream through
+its C entry point.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import functools
 import torch
 
 from .. import _build
+from .._layout import check_aligned
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128)
@@ -59,6 +62,7 @@ def _check(q, k, v, q_pos, k_pos):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a unit stride on its last axis, "
                              f"got strides {t.stride()}")
+    check_aligned("flash_attention", q=q, k=k, v=v)
     for name, t, n in (("q_pos", q_pos, Tq), ("k_pos", k_pos, Tk)):
         if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 [{n}], got "
@@ -75,6 +79,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Tq, hd = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    check_aligned("flash_attention", out=out)
     with torch.cuda.device(q.device):
         err = _entry()(
             DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),

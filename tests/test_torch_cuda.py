@@ -8,8 +8,8 @@ Operands are the model's [B,T,H|KV,hd] tensors handed over as transposed
 views, as the attention layer does. The plain version runs in f32 on the
 same inputs (bf16 ones upcast exactly). Tolerances: 2e-5 for f32 (IEEE f32
 on both sides: TF32 is off). bf16 kernels round the output to bf16 (2**-9
-relative) and the flash kernel rounds P to bf16 before P V: atol 4e-3 /
-rtol 1.6e-2 per element, and |got - want|_2 / |want|_2 <= 1e-2 per query
+relative) and both attention kernels round P to bf16 before P V: atol
+4e-3 / rtol 1.6e-2 per element, and |got - want|_2 / |want|_2 <= 1e-2 per query
 row, which a key tile dropped or a padded key left in the softmax sum
 exceeds on the rows it touches. The two scans (ssm_scan, rwkv6_wkv) are
 held the same way, rows being the last axis of y, from a nonzero initial
@@ -108,6 +108,45 @@ def test_flash_kernel_offset_queries_and_empty_rows(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 17, 63, 127, 128, 129])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_tile_edges(dev, T, hd, dtype):
+    """T below one 64-key tile, and at and across the 128-row block edge,
+    at every head dim (hd 112 is zero-padded to 128 in shared memory)."""
+    rng = np.random.default_rng(T * 7 + hd)
+    B, H, KV = 2, 4, 2
+    q = _model_layout(rng, B, T, H, hd, dtype, dev)
+    k = _model_layout(rng, B, T, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, T, KV, hd, dtype, dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)
+    for window in (0, 40):
+        got = flash_attention(q, k, v, pos, pos, window=window)
+        assert got.stride() == q.stride()
+        _assert_matches(got, attention_ref(*_f32(q, k, v), pos, pos,
+                                           window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
+def test_flash_kernel_offsets_and_empty_rows_every_head_dim(dev, hd):
+    """Tq != Tk with the queries at the end, across the 128-row edge; one
+    row with no admissible key (uniform average) and a window < T."""
+    rng = np.random.default_rng(hd)
+    B, H, KV, Tq, Tk = 2, 4, 1, 130, 515
+    q = _model_layout(rng, B, Tq, H, hd, torch.bfloat16, dev)
+    k = _model_layout(rng, B, Tk, KV, hd, torch.bfloat16, dev)
+    v = _model_layout(rng, B, Tk, KV, hd, torch.bfloat16, dev)
+    q_pos = torch.arange(Tk - Tq, Tk, dtype=torch.int32, device=dev)
+    q_pos[129] = -5                     # in the second 128-row block
+    k_pos = torch.arange(Tk, dtype=torch.int32, device=dev)
+    for window in (0, 100):
+        got = flash_attention(q, k, v, q_pos, k_pos, window=window)
+        _assert_matches(got, attention_ref(*_f32(q, k, v), q_pos, k_pos,
+                                           window=window))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,KV,G,S,hd", [
     (1, 2, 4, 512, 64), (2, 1, 8, 1024, 128), (2, 4, 1, 512, 64),
     (8, 2, 7, 1031, 64), (3, 2, 16, 100, 32), (64, 8, 2, 300, 64),
@@ -145,6 +184,137 @@ def test_decode_kernel_ring_positions_and_sentinel(dev, empty, dtype):
     k_pos = torch.from_numpy(k_pos.astype(np.int32)).to(dev)
     got = decode_attention(q, k, v, k_pos, last)
     _assert_matches(got, decode_attention_ref(*_f32(q, k, v), k_pos, last))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [5, 63, 64, 65, 127, 129, 191, 193])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_short_and_ragged_caches(dev, S, dtype):
+    """S below one 64-slot tile and at 64 k +- 1 (a ragged last tile)."""
+    rng = np.random.default_rng(S)
+    B, KV, G, hd = 3, 2, 7, 64
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+                         ).to(dev, dtype)
+    k = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev)
+    for pos in (S - 1, S // 2):
+        got = decode_attention(q, k, v, k_pos, pos)
+        _assert_matches(got, decode_attention_ref(*_f32(q, k, v), k_pos,
+                                                  pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 7, 8, 16])
+@pytest.mark.parametrize("hd", [112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_group_sizes(dev, G, hd, dtype):
+    """Every lane mapping of scores and P V: G 1..16 at the wide head
+    dims (hd 112 leaves two of 16 lanes idle per slot)."""
+    rng = np.random.default_rng(G * 1000 + hd)
+    B, KV, S = 2, 3, 777
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+                         ).to(dev, dtype)
+    k = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, k_pos, 700)
+    _assert_matches(got, decode_attention_ref(*_f32(q, k, v), k_pos, 700))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,KV,G,S,hd,n_split", [
+    (128, 32, 1, 200, 64, 1),        # enough groups: one run each
+    (1, 1, 4, 64 * 64, 112, 64),     # the most runs a group gets
+    (1, 1, 2, 64 * 64 * 3 + 5, 64, 49),    # capped: runs of 4 tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_split_extremes(dev, B, KV, G, S, hd, n_split, dtype):
+    from repro_torch.kernels.decode_attention import kernel as dk
+    assert dk.split(B, KV, S, 132)[0] == n_split     # the H100's 132 SMs
+    rng = np.random.default_rng(S)
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+                         ).to(dev, dtype)
+    k = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev)
+    for pos in (S - 1, S - 1):         # twice: the merge counters reset
+        got = decode_attention(q, k, v, k_pos, pos)
+        _assert_matches(got, decode_attention_ref(*_f32(q, k, v), k_pos,
+                                                  pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,G", [(112, 1), (128, 16), (64, 7)])
+def test_decode_kernel_ring_and_sentinel_wide(dev, hd, G):
+    """A ring cache's slot -> position map with empty (2**30) slots, and
+    one where every slot is empty (uniform average over the cache)."""
+    rng = np.random.default_rng(hd + G)
+    B, KV, S = 2, 2, 300
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    k = _model_layout(rng, B, S, KV, hd, torch.bfloat16, dev)
+    v = _model_layout(rng, B, S, KV, hd, torch.bfloat16, dev)
+    last = 1000
+    ring = last - ((last - np.arange(S)) % S)
+    ring[rng.choice(S, size=50, replace=False)] = 2 ** 30
+    for k_pos in (ring, np.full(S, 2 ** 30)):
+        kp = torch.from_numpy(k_pos.astype(np.int32)).to(dev)
+        got = decode_attention(q, k, v, kp, last)
+        _assert_matches(got, decode_attention_ref(*_f32(q, k, v), kp, last))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_on_two_streams_at_once(dev):
+    """Decode calls that overlap on two streams of one device, each cut
+    into many runs merged in the same launch: each stream has its own
+    arrival counters, so both outputs match the plain version."""
+    rng = np.random.default_rng(7)
+    B, KV, G, S, hd = 8, 32, 1, 1031, 112      # zamba2-7b's served decode
+    from repro_torch.kernels.decode_attention import kernel as dk
+    assert dk.split(B, KV, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0] > 1
+    cases = []
+    for _ in range(2):
+        q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        k = _model_layout(rng, B, S, KV, hd, torch.bfloat16, dev)
+        v = _model_layout(rng, B, S, KV, hd, torch.bfloat16, dev)
+        cases.append((q, k, v))
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev)
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(20):
+        for s, case, out in zip(streams, cases, outs):
+            with torch.cuda.stream(s):
+                out.append(decode_attention(*case, k_pos, S - 1))
+    torch.cuda.synchronize()
+    for case, out in zip(cases, outs):
+        want = decode_attention_ref(*_f32(*case), k_pos, S - 1)
+        for got in out:
+            _assert_matches(got, want)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_misaligned_operands(dev):
+    """Views offset by one element cannot be read by 16-byte copies: the
+    wrappers raise, with no fallback."""
+    B, T, H, hd = 1, 64, 2, 64
+    n0 = (flash_attention.launches, decode_attention.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.zeros(B * T * H * hd + 1, device=dev, dtype=dtype)
+        bad = flat[1:].view(B, T, H, hd).transpose(1, 2)
+        good = torch.zeros(B, H, T, hd, device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(bad, good, good)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(good, good, bad)
+        with pytest.raises(ValueError, match="16-byte"):
+            decode_attention(bad[:, :, :1], good, good)
+        with pytest.raises(ValueError, match="16-byte"):
+            decode_attention(good[:, :, :1], bad, good)
+    assert (flash_attention.launches, decode_attention.launches) == n0
 
 
 def _randn(rng, shape, dev, dtype=torch.float32, scale=1.0):

@@ -31,6 +31,7 @@ from repro.kernels.rwkv6_wkv.ops import rwkv6_wkv as wkv_pallas  # noqa: E402
 from repro.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref as wkv_jnp  # noqa: E402
 from repro.kernels.ssm_scan.ops import ssm_scan as ssm_pallas  # noqa: E402
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as ssm_jnp  # noqa: E402
+from repro_torch.kernels._layout import aligned16, check_aligned  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
@@ -191,16 +192,100 @@ def test_kernel_launchers_refuse_cpu_tensors():
         ssm_kernel.ssm_scan(x, b, b, x[..., 0], x[0, 0, :, 0], x[0, 0, :, 0])
 
 
-@pytest.mark.parametrize("B,KV,S", [(8, 2, 1031), (1, 1, 1), (3, 2, 100),
-                                    (64, 8, 4096), (2, 1, 64 * 33 + 5)])
-def test_decode_split_covers_the_cache(B, KV, S):
+@pytest.mark.parametrize("B,KV,G,S,hd", [
+    (8, 2, 7, 1031, 64),             # qwen2-0.5b's served decode
+    (8, 32, 1, 1031, 112),           # zamba2-7b's served decode
+    (8, 8, 16, 1031, 128),           # hd 128 x G 16
+    (1, 1, 1, 1, 64), (3, 2, 2, 100, 32), (64, 8, 2, 4096, 64),
+    (2, 1, 4, 64 * 33 + 5, 128), (1, 1, 1, 64 * 64, 112),
+    (1, 1, 1, 200_000, 64), (128, 32, 1, 200, 64),
+])
+def test_decode_split_covers_the_cache(B, KV, G, S, hd):
     """The decode kernel's cut of S into runs: whole tiles, none empty,
-    about two blocks per SM where S allows."""
-    n_split, split_len = dec_kernel.split(B, KV, S, n_sm=132)
+    sized from the total tile count so that the card gets about
+    RUNS_PER_SM runs per SM (as many as there are tiles below that), at
+    most MAX_SPLIT per group; and the merge's workspace keeps every run's
+    16-byte rows aligned."""
+    n_sm = 132
+    n_split, split_len = dec_kernel.split(B, KV, S, n_sm)
     assert split_len % dec_kernel.TILE == 0
     assert (n_split - 1) * split_len < S <= n_split * split_len
+    assert 1 <= n_split <= dec_kernel.MAX_SPLIT
     n_tiles = -(-S // dec_kernel.TILE)
-    assert B * KV * n_split >= min(2 * 132, B * KV * n_tiles) // 2
+    total = B * KV * n_tiles
+    runs = B * KV * n_split
+    assert runs >= min(total, dec_kernel.RUNS_PER_SM * n_sm,
+                       B * KV * dec_kernel.MAX_SPLIT) // 2
+    # No finer than needed: a run holds at most twice the aimed tiles.
+    aim = max(-(-total // (dec_kernel.RUNS_PER_SM * n_sm)),
+              -(-n_tiles // dec_kernel.MAX_SPLIT))
+    assert split_len // dec_kernel.TILE == aim
+    per_run = dec_kernel.workspace_floats(B, KV, G, hd, n_split) // runs
+    assert per_run * runs == dec_kernel.workspace_floats(B, KV, G, hd,
+                                                         n_split)
+    assert per_run % 4 == 0 and per_run >= G * (hd + 2)
+
+
+def test_decode_split_at_the_served_shapes():
+    """zamba2-7b (B*KV = 256 groups of 17 tiles) gets 4 runs of 5 tiles,
+    not the 2 runs of 9 that aiming at two blocks per SM gave; qwen2-0.5b
+    (16 groups) one tile per run."""
+    assert dec_kernel.split(8, 32, 1031, 132) == (4, 320)
+    assert dec_kernel.split(8, 2, 1031, 132) == (17, 64)
+
+
+def test_decode_merge_counters_are_kept_per_stream():
+    """The folded merge's arrival counters: one zeroed buffer per (device,
+    stream), shared by the calls of one stream, never by two streams,
+    and grown only for more (b, kv) groups."""
+    dev = torch.device("cpu")
+    saved = dict(dec_kernel._counters)
+    dec_kernel._counters.clear()
+    try:
+        a = dec_kernel._merge_counters(dev, 11, 256)
+        assert a.dtype == torch.int32 and not a.any()
+        assert dec_kernel._merge_counters(dev, 11, 16) is a
+        b = dec_kernel._merge_counters(dev, 12, 256)
+        assert b.data_ptr() != a.data_ptr()
+        big = dec_kernel._merge_counters(dev, 11, a.numel() + 1)
+        assert big.numel() > a.numel()
+        assert dec_kernel._merge_counters(dev, 12, 16) is b
+    finally:
+        dec_kernel._counters.clear()
+        dec_kernel._counters.update(saved)
+
+
+@pytest.mark.parametrize("shape,strides,itemsize,ptr,ok", [
+    ((8, 14, 999, 64), (894976, 64, 896, 1), 2, 0x7f0000000000, True),
+    ((8, 32, 999, 112), (3580416, 112, 3584, 1), 2, 0x7f0000000100, True),
+    ((8, 14, 999, 64), (894976, 64, 896, 1), 2, 0x7f0000000002, False),
+    ((8, 14, 999, 64), (894976, 64, 896, 1), 4, 0x7f0000000004, False),
+    ((2, 4, 70, 64), (17920, 64, 256, 1), 4, 0x7f0000000010, True),
+    ((2, 4, 70, 36), (10080, 36, 144, 1), 2, 0x7f0000000000, False),
+    ((1, 2, 64, 64), (3, 64, 128, 1), 2, 0x7f0000000000, True),
+    ((2, 2, 64, 64), (3, 64, 128, 1), 2, 0x7f0000000000, False),
+    ((2, 2, 64, 64), (8192, 64, 128, 2), 2, 0x7f0000000000, False),
+    ((1031,), (1,), 4, 0x7f0000000040, True),
+    ((1031,), (1,), 4, 0x7f0000000044, False),
+])
+def test_alignment_predicate(shape, strides, itemsize, ptr, ok):
+    """The layout the attention kernels read by 16-byte copies: aligned
+    base, unit last stride, 16-byte-multiple strides except where the
+    extent is 1; a view offset by one element fails."""
+    assert aligned16(shape, strides, itemsize, ptr) is ok
+
+
+def test_alignment_predicate_on_views():
+    """On real tensors: the model's transposed view of a fresh allocation
+    passes, the same view offset by one element fails, and `check_aligned`
+    raises ValueError for it."""
+    n = 2 * 40 * 4 * 64
+    x = torch.zeros(n + 8, dtype=torch.bfloat16)
+    good = x[:n].view(2, 40, 4, 64).transpose(1, 2)
+    bad = x[1:n + 1].view(2, 40, 4, 64).transpose(1, 2)
+    check_aligned("test", q=good)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_aligned("test", q=good, k=bad)
 
 
 # ------------------------------------------------------ attention at hd 112
