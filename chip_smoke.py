@@ -32,10 +32,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   6. time each kernel at the serving shapes with CUDA events, beside its
      plain version, one PyTorch call computing the same function where
      there is one (`F.scaled_dot_product_attention`, a yardstick the port
-     never calls), the least time the card could take (its bound) and, for
-     the two attention kernels, their time before the Hopper redesign
-     (BEFORE_REDESIGN_MS, copied from PERF.md and printed in the table
-     only, never in the JSON line);
+     never calls), the least time the card could take (its bound) and
+     each kernel's time before its Hopper redesign (BEFORE_REDESIGN_MS,
+     copied from PERF.md and printed in the table only, never in the JSON
+     line);
   7. trace one more served batch of each model with torch.profiler: the
      device's busy share of the batch's wall time and the kernels that
      take the most.
@@ -59,9 +59,11 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: dense bf16 tensor-core rate, f32 rate outside the
-# tensor cores (the scans' IEEE f32 math) and HBM3 bandwidth.
+# H100 SXM data sheet: dense bf16 and TF32 tensor-core rates (the scans run
+# their f32 products in 3xTF32, three TF32 products each), the f32 rate
+# outside the tensor cores, and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -669,9 +671,11 @@ def _time_scan(name, ins):
     """A scan kernel and its plain (stepwise) version on the served shape's
     f32 inputs, from a nonzero state. The bound counts the recurrence's own
     work, 4 flops (two multiply-adds) per state element per step, plus one
-    exponential per decay, at the f32 rate outside the tensor cores (the
-    kernels' math is IEEE f32); each input read once, y and the final
-    state written once."""
+    exponential per decay, each input read once, y and the final state
+    written once. `bound_ms` takes the flops in the kernels' own units,
+    3xTF32 (three TF32 tensor-core products per f32 one) at 495 TFLOP/s;
+    `bound_f32_ms` at the f32 rate outside the tensor cores, as the scalar
+    kernels were bounded before."""
     from repro_torch.kernels.rwkv6_wkv import kernel as wk
     from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
     from repro_torch.kernels.ssm_scan import kernel as sk
@@ -687,24 +691,27 @@ def _time_scan(name, ins):
     y_bytes = x.numel() * x.element_size()
     decays = args[3].numel() if name == "ssm_scan" else x.numel()
     flops = 4.0 * T * s0.numel() + decays
-    b, t = bound(n_in + y_bytes + state_bytes, flops, PEAK_F32_FLOPS)
+    n_bytes = n_in + y_bytes + state_bytes
+    b, t = bound(n_bytes, 3 * flops, PEAK_TF32_FLOPS)
     ms, eager = time_ms([lambda: kern(*args, s0)], n=20)
     return dict(ms=ms, eager_ms=eager,
                 plain_ms=time_ms([lambda: plain(*args, s0)], n=2)[0],
-                bound_ms=b, bound_by=t, bound_peak="f32 67 TFLOP/s",
-                bound_bf16_peak_ms=bound(n_in + y_bytes + state_bytes,
-                                         flops)[0],
+                bound_ms=b, bound_by=t, bound_peak="3xTF32 at 495 TFLOP/s",
+                bound_f32_ms=bound(n_bytes, flops, PEAK_F32_FLOPS)[0],
                 library_ms=None,
                 shape="x".join(str(n) for n in x.shape) + " f32, state "
                       + "x".join(str(n) for n in s0.shape))
 
 
-# The attention kernels' phase-6 times before their Hopper redesign (the
-# kernel table of PERF.md, same shapes, NVIDIA H100 80GB HBM3 at 700 W):
-# (qwen2-0.5b's shape, zamba2-7b's hd-112 shape). Not measured by this run,
-# so printed beside the table for reading only and kept out of the JSON line.
+# Each kernel's phase-6 time before its Hopper redesign (the kernel table of
+# PERF.md, same shapes, NVIDIA H100 80GB HBM3 at 700 W): (qwen2-0.5b's
+# shape, zamba2-7b's hd-112 shape) for attention, the served shape for the
+# scans. Not measured by this run, so printed beside the table for reading
+# only and kept out of the JSON line.
 BEFORE_REDESIGN_MS = {"flash_attention": (0.3246, 1.4885),
-                      "decode_attention": (0.0271, 0.4944)}
+                      "decode_attention": (0.0271, 0.4944),
+                      "ssm_scan": (1.5947,),
+                      "rwkv6_wkv": (1.5367,)}
 
 
 SOURCES = {
@@ -757,18 +764,20 @@ def time_kernels(main, errs, launches_by_path):
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        before = BEFORE_REDESIGN_MS.get(r["name"])
-        was = (f" (PR 12, from PERF.md: {before[0]:.4f} ms)" if before
-               else "")
-        print(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms{was} "
-              f"(eager {r['eager_ms']:.4f} ms), plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
-              f"{r['launches_by_path']}")
+        before = BEFORE_REDESIGN_MS[r["name"]]
+        f32_bound = (f", at the f32 rate {r['bound_f32_ms']:.4f} ms"
+                     if "bound_f32_ms" in r else "")
+        print(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms (before the "
+              f"redesign, from PERF.md: {before[0]:.4f} ms) (eager "
+              f"{r['eager_ms']:.4f} "
+              f"ms), plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){f32_bound}, "
+              f"launches {r['launches_by_path']}")
         if "hd112" in r:
             h = r["hd112"]
             print(f"    at hd 112 [{h['shape']}]: {h['ms']:.4f} ms "
-                  f"(PR 12, from PERF.md: {before[1]:.4f} ms) (eager "
+                  f"(before the redesign, from PERF.md: {before[1]:.4f} "
+                  f"ms) (eager "
                   f"{h['eager_ms']:.4f} ms), plain "
                   f"{h['plain_ms']:.4f} ms, SDPA {h['library_ms']:.4f} ms, "
                   f"bound {h['bound_ms']:.4f} ms ({h['bound_by']})")

@@ -1,6 +1,7 @@
-"""The memory layout the attention kernels read by 16-byte copies (TMA
-boxes in prefill, cp.async in decode): a 16-byte-aligned base, a unit
-stride on the last axis, and every other stride a multiple of 16 bytes.
+"""The memory layout the kernels read by 16-byte copies (TMA boxes in
+prefill, cp.async in decode and in the two scans): a 16-byte-aligned
+base, a unit stride on the last axis, and every other stride a multiple
+of 16 bytes.
 A dimension of extent 1 never moves, so its stride does not count."""
 from __future__ import annotations
 

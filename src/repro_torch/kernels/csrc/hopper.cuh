@@ -184,9 +184,10 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// 2^x by the special-function unit (ex2.approx.ftz: ~2 ulp, -inf -> 0).
-// The bf16 kernels round P to bf16 right after, so the approximation is
-// far below what that rounding loses.
+// 2^x by the special-function unit (ex2.approx.ftz: ~2 ulp, -inf -> 0,
+// results below 2^-126 flushed to 0). The bf16 attention kernels round P
+// to bf16 right after, so the approximation is far below what that
+// rounding loses; the WKV scan's decays stay within its f32 tolerance.
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));

@@ -18,44 +18,69 @@
 // A and D f32; the math is f32; y has x's type. D x is added here, once.
 //
 // Design.
-//  * Grid (nh, B): one block of 256 threads per (b, head). The TPU kernel's
-//    sequential chunk axis becomes a loop inside the block; the state
-//    lives in shared memory for the whole sweep and is read from s0 and
-//    written to s_out once. The chunk is 64 steps (the TPU kernel's 128
-//    would need ~180 KB of shared memory for one block; 64 fits two blocks
-//    per SM in ~84 KB each, and the closed form is exact for any chunk).
-//  * C B^T [Q, Q] does not depend on the head; like the TPU kernel, each
-//    head's block computes it again. Sharing it across the heads of one b
-//    is a later step.
-//  * Each thread owns a 4 x 4 tile of the [64, 64] weights M[t][s]
-//    (t = ty + 16 i, s = tx + 16 j), skipping the tiles above the
-//    diagonal; y and the state update are register tiles over shared
-//    memory too. Rows indexed across a warp have an odd stride, so the
-//    loads are free of bank conflicts.
+//  * Grid (ceil(nh / 2), B): a block takes two heads of one batch row.
+//    Bm and Cm are [B, T, N] (one group), so C B^T of a chunk does not
+//    depend on the head: the block computes it once per chunk and both
+//    heads apply their own decay exp(P_t - P_s) dt_s to it. Two heads,
+//    because the grid must still fill the card: at the served shape
+//    (B 8, nh 112) that is 448 blocks for 132 SMs at 2 blocks per SM,
+//    1.7 waves; three heads give 304 blocks, 1.15 waves, idling most of
+//    the second; four need 16 warps and more shared memory than two
+//    blocks per SM may hold. A missing second head (odd nh) leaves its
+//    warps idle.
+//  * Four products per chunk, all on the tensor cores in 3xTF32
+//    (mma.sync m16n8k8; each f32 operand split into TF32 hi + lo and
+//    hi*hi + hi*lo + lo*hi summed in f32): C B^T [Q,N][N,Q], M x
+//    [Q,Q][Q,hp], C S^T [Q,N][N,hp] and the state update (w x)^T B
+//    [hp,Q][Q,N]. One TF32 product alone misses the f32 tolerance by two
+//    orders of magnitude; 3xTF32 keeps the scalar kernel's accuracy.
+//  * hp / 16 warps per head, warp w owning the state rows p in
+//    [16 w, 16 w + 16) as mma accumulators in registers for the whole
+//    sweep, and the same 16 columns of y. The accumulator layout of S is,
+//    with the contraction index n permuted within each 8 (k q <-> n 2q,
+//    k q + 4 <-> n 2q + 1), exactly the B fragment C S^T needs, so the
+//    state never leaves registers; the same permutation turns C's and
+//    B's fragment loads into 8-byte loads.
+//  * The chunk is 32 steps. Stages of x, B, C and dt for chunk c + 1 are
+//    loaded by 16-byte cp.async (4-byte for dt; bf16 converted on load)
+//    while chunk c computes: two stages and the C B^T tile take ~80 KB,
+//    so two blocks (16 warps) share an SM. A 64-step chunk would need
+//    ~150 KB with two stages, one block per SM. Rows are padded (N + 8,
+//    hp + 8, Q + 4 floats) so every fragment load is free of bank
+//    conflicts.
+//  * dt A's prefix sum is a 32-lane shuffle scan, one warp per head.
+//  * Exponents stay differences within a chunk, exp(P_t - P_s) and
+//    exp(P_{L-1} - P_s), all <= 0: never exp(P_t) exp(-P_s), whose second
+//    factor overflows once a chunk's decay passes e^88.
 //  * A ragged last chunk is zero-padded on load: a padded step has
 //    x = B = C = 0 and dt = 0, which leaves P, y and S exactly as they
 //    were, so nothing else is masked. Operands are read through their
 //    strides (the model's [B, T, nh, hp] and [B, T, N] tensors), with no
-//    copies.
-//  * f32 math is IEEE FMAs and expf on the CUDA cores, no TF32.
+//    copies; x, Bm and Cm need 16-byte-aligned bases and strides (the
+//    wrapper raises otherwise).
 //
-// What bounds it on the H100: the recurrence does 4 flops per state
-// element per step and moves x, y, B, C and dt once, so at the served
-// shape (B 8, T 999, nh 112, hp = N = 64, f32) its bound is 0.219 ms by
-// f32 operations (0.148 ms by bytes). The chunked form does ~27 GFLOP
-// there; chip_smoke.py measures this kernel at 1.60 ms (NVIDIA H100 80GB
-// HBM3, 700 W), 7.3x the bound, its FMAs fed from shared memory at one
-// load per two. The three products are the shape of a tensor-core GEMM;
-// a 3xTF32 or bf16-operand version on wgmma is the next step.
+// What bounds it on the H100: the recurrence moves x, y, B, C and dt once,
+// 0.148 ms at the served shape (B 8, T 999, nh 112, hp = N = 64, f32) by
+// bytes; its 4 flops per state element per step take 0.219 ms at the f32
+// rate outside the tensor cores, and 3x that at the TF32 tensor rate,
+// 0.089 ms. The chunked form does ~2x the recurrence's flops, ~28 M
+// mma.sync in all. chip_smoke.py measures 0.520 ms there (phase 6, NVIDIA
+// H100 80GB HBM3, 700 W; the earlier scalar kernel took 1.59 ms), 3.5x the
+// bytes bound. The kernel is close to bound by instruction issue: ~2.8k
+// SASS instructions per warp and chunk (tools/sass_mix.py) with four
+// warps per scheduler, nearly half of them integer operations (the TF32
+// splits and addresses); its mma.sync run at a third of the card's
+// mma.sync TF32 rate (tools/mma_rate.cu).
 
 #include <math.h>
 
 #include "common.cuh"
+#include "scan.cuh"
 
 namespace {
 
-constexpr int SQ = 64;     // chunk length
-constexpr int SNT = 256;   // threads per block: 16 x 16
+constexpr int SQ = 32;   // chunk length: one step per lane in the scan
+constexpr int SG = 2;    // heads per block
 
 // Element strides of a 3-D operand [B, T, n] (n: N for B and C, nh for dt).
 struct Strides3 {
@@ -63,189 +88,267 @@ struct Strides3 {
 };
 
 template <int HP, int N>
-constexpr int smem_floats() {
-  return SQ * HP              // Xs: [SQ][HP]
-         + 2 * SQ * (N + 1)   // Bs, Cs: [SQ][N + 1]
-         + SQ * (SQ + 1)      // Ms: [SQ][SQ + 1]
-         + HP * (N + 1)       // Ss: [HP][N + 1], the state
-         + 4 * SQ;            // cum, dts, ecum, wts: [SQ]
-}
+struct SsdShape {
+  static constexpr int WPH = HP / 16;        // warps per head
+  static constexpr int NW = SG * WPH;
+  static constexpr int NTH = 32 * NW;
+  static constexpr int LDC = N + 8;          // B, C rows: 8 mod 32 words
+  static constexpr int LDX = HP + 8;         // x rows: 8 mod 32
+  static constexpr int LDG = SQ + 4;         // C B^T rows: 4 mod 32
+  static constexpr int STAGE = 2 * SQ * LDC + SG * SQ * LDX + SG * SQ;
+  static constexpr int SMEM_FLOATS = 2 * STAGE + SQ * LDG + 3 * SG * SQ;
+};
 
 template <typename T, int HP, int N>
-__global__ void __launch_bounds__(SNT) ssd_kernel(
+__global__ void __launch_bounds__(SsdShape<HP, N>::NTH, 2) ssd_kernel(
     const T* __restrict__ x, const T* __restrict__ Bm,
     const T* __restrict__ Cm, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ D,
     const float* __restrict__ s0, T* __restrict__ y,
     float* __restrict__ s_out, int T_len, int nh, Strides sx, Strides3 sb,
     Strides3 sc, Strides3 sd, Strides sy) {
-  static_assert(HP % 16 == 0 && N % 16 == 0 && SQ == 64, "tile shape");
-  constexpr int LN = N + 1, LM = SQ + 1;
-  constexpr int PJ = HP / 16, NJ = N / 16;
+  using S_ = SsdShape<HP, N>;
+  constexpr int WPH = S_::WPH, NW = S_::NW, NTH = S_::NTH;
+  constexpr int LDC = S_::LDC, LDX = S_::LDX, LDG = S_::LDG;
+  constexpr int STAGE = S_::STAGE, NTN = N / 8;
+  static_assert(HP % 16 == 0 && N % 8 == 0 && SQ == 32, "tile shape");
 
-  extern __shared__ float smem[];
-  float* Xs = smem;
-  float* Bs = Xs + SQ * HP;
-  float* Cs = Bs + SQ * LN;
-  float* Ms = Cs + SQ * LN;
-  float* Ss = Ms + SQ * LM;
-  float* cum = Ss + HP * LN;   // P_t
-  float* dts = cum + SQ;       // dt_t
-  float* ecum = dts + SQ;      // exp(P_t)
-  float* wts = ecum + SQ;      // exp(P_{L-1} - P_s) dt_s
+  extern __shared__ __align__(16) float smem[];
+  float* Gm = smem + 2 * STAGE;   // C B^T of the chunk [SQ][LDG]
+  float* Ps = Gm + SQ * LDG;      // P_t per head
+  float* eP = Ps + SG * SQ;       // exp(P_t)
+  float* ws = eP + SG * SQ;       // exp(P_{L-1} - P_s) dt_s
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const T* xb = x + b * sx.b + h * sx.h;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int h0 = blockIdx.x * SG, b = blockIdx.y;
+  const int n_heads = min(SG, nh - h0);
+  const int hl = warp / WPH, h = h0 + hl, p0 = 16 * (warp % WPH);
+  const bool active = hl < n_heads;
+
   const T* Bb = Bm + b * sb.b;
   const T* Cb = Cm + b * sc.b;
-  const float* db = dt + b * sd.b + h * sd.n;
-  T* yb = y + b * sy.b + h * sy.h;
-  const float Ah = A[h], Dh = D[h];
-  const int64_t sbase = ((int64_t)b * nh + h) * HP * N;
-
-  for (int i = tid; i < HP * N; i += SNT)
-    Ss[(i / N) * LN + i % N] = s0 ? s0[sbase + i] : 0.f;
-
-  for (int c0 = 0; c0 < T_len; c0 += SQ) {
+  auto issue = [&](int c0, int st) {
+    float* Cs = smem + st * STAGE;
+    float* Bs = Cs + SQ * LDC;
+    float* Xs = Bs + SQ * LDC;
+    float* dts = Xs + SG * SQ * LDX;
     const int L = min(SQ, T_len - c0);
-    __syncthreads();  // the previous chunk's tiles are consumed
-    for (int idx = tid; idx < SQ * HP; idx += SNT) {
-      const int t = idx / HP, p = idx % HP;
-      Xs[idx] = t < L ? to_float(xb[(int64_t)(c0 + t) * sx.t + p * sx.d])
-                      : 0.f;
-    }
-    for (int idx = tid; idx < SQ * N; idx += SNT) {
-      const int t = idx / N, n = idx % N;
+    load_tile<SQ, N, NTH>(Cs, LDC, Cb + c0 * sc.t, sc.t, L, tid);
+    load_tile<SQ, N, NTH>(Bs, LDC, Bb + c0 * sb.t, sb.t, L, tid);
+    for (int j = 0; j < n_heads; ++j)
+      load_tile<SQ, HP, NTH>(Xs + j * SQ * LDX, LDX,
+                             x + b * sx.b + (h0 + j) * sx.h + c0 * sx.t,
+                             sx.t, L, tid);
+    for (int i = tid; i < n_heads * SQ; i += NTH) {
+      const int j = i / SQ, t = i % SQ;
       const bool in = t < L;
-      const int64_t tt = c0 + t;
-      Bs[t * LN + n] = in ? to_float(Bb[tt * sb.t + n * sb.n]) : 0.f;
-      Cs[t * LN + n] = in ? to_float(Cb[tt * sc.t + n * sc.n]) : 0.f;
+      cp_async4(dts + i,
+                dt + b * sd.b + (h0 + j) * sd.n + (in ? (c0 + t) * sd.t : 0),
+                in ? 4 : 0);
     }
-    if (tid < SQ) dts[tid] = tid < L ? db[(int64_t)(c0 + tid) * sd.t] : 0.f;
-    __syncthreads();
-    if (tid == 0) {
-      float c = 0.f;
-      for (int t = 0; t < SQ; ++t) {
-        c += dts[t] * Ah;
-        cum[t] = c;
-      }
-    }
-    __syncthreads();
-    // Padded steps have dt = 0, so P_{SQ-1} = P_{L-1}.
-    if (tid < SQ) {
-      ecum[tid] = expf(cum[tid]);
-      wts[tid] = expf(cum[SQ - 1] - cum[tid]) * dts[tid];
-    }
-    // M[t][s] = exp(P_t - P_s) (C_t . B_s) dt_s for s <= t.
-    {
-      float m[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) m[i][j] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float ct[4], bs[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ct[i] = Cs[(ty + 16 * i) * LN + n];
-          bs[i] = Bs[(tx + 16 * i) * LN + n];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j) m[i][j] = fmaf(ct[i], bs[j], m[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = ty + 16 * i, s = tx + 16 * j;
-          Ms[t * LM + s] =
-              s <= t ? expf(cum[t] - cum[s]) * m[i][j] * dts[s] : 0.f;
-        }
-    }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // y_t = sum_s M[t][s] x_s + exp(P_t) S C_t + D x_t
-    {
-      float acc[4][PJ], car[4][PJ];
+  // The state rows p0 + g (+ 8) of this warp's head, in the accumulator
+  // layout of the state update: Sacc[j] holds columns 8 j + 2 q (+ 1).
+  float Sacc[NTN][4];
+  const int64_t sbase = ((int64_t)b * nh + h) * HP * N;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NTN; ++j) {
+    float2 lo = make_float2(0.f, 0.f), hi = lo;
+    if (active && s0) {
+      lo = *reinterpret_cast<const float2*>(s0 + sbase + (p0 + g) * N +
+                                            8 * j + 2 * q);
+      hi = *reinterpret_cast<const float2*>(s0 + sbase + (p0 + g + 8) * N +
+                                            8 * j + 2 * q);
+    }
+    Sacc[j][0] = lo.x, Sacc[j][1] = lo.y, Sacc[j][2] = hi.x,
+    Sacc[j][3] = hi.y;
+  }
+  const float Ah = active ? A[h] : 0.f, Dh = active ? D[h] : 0.f;
+
+  issue(0, 0);
+  for (int c0 = 0, st = 0; c0 < T_len; c0 += SQ, st ^= 1) {
+    const int L = min(SQ, T_len - c0);
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c landed; every warp is done with chunk c - 1
+    if (c0 + SQ < T_len) issue(c0 + SQ, st ^ 1);
+    const float* Cs = smem + st * STAGE;
+    const float* Bs = Cs + SQ * LDC;
+    const float* Xh = Bs + SQ * LDC + hl * SQ * LDX;
+    const float* dth = Bs + SQ * LDC + SG * SQ * LDX + hl * SQ;
+
+    // P_t = (dt_0 + ... + dt_t) A by a shuffle scan, one warp per head.
+    if (active && warp % WPH == 0) {
+      const float dtv = dth[lane];
+      float p = dtv * Ah;
 #pragma unroll
-        for (int j = 0; j < PJ; ++j) acc[i][j] = car[i][j] = 0.f;
-#pragma unroll 4
-      for (int s = 0; s < SQ; ++s) {
-        float mt[4], xv[PJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mt[i] = Ms[(ty + 16 * i) * LM + s];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) xv[j] = Xs[s * HP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(mt[i], xv[j], acc[i][j]);
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, p, o);
+        if (lane >= o) p += v;
       }
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float ct[4], sv[PJ];
+      const float last = __shfl_sync(0xffffffffu, p, 31);
+      Ps[hl * SQ + lane] = p;
+      eP[hl * SQ + lane] = expf(p);
+      ws[hl * SQ + lane] = expf(last - p) * dtv;
+    }
+    // C B^T on and below the diagonal, 16 x 8 tiles over the warps that
+    // run no scan: rows 0-15 take columns 0-15 (2 tiles), rows 16-31
+    // columns 0-31 (4). The three products of 3xTF32 go to three
+    // accumulators, a chain of N / 8 k-steps each.
+    const int gw = warp - warp / WPH - 1;   // rank among those warps
+    for (int tile = gw; warp % WPH && tile < 6; tile += NW - SG) {
+      const int i = tile < 2 ? 0 : 1, j = tile < 2 ? tile : tile - 2;
+      float d[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+      float d2[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ct[i] = Cs[(ty + 16 * i) * LN + n];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) sv[j] = Ss[(tx + 16 * j) * LN + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) car[i][j] = fmaf(ct[i], sv[j], car[i][j]);
+      for (int kk = 0; kk < NTN; ++kk) {
+        Frag<4> a;
+        Frag<2> bf;
+        const float2 c0v = *reinterpret_cast<const float2*>(
+            Cs + (16 * i + g) * LDC + 8 * kk + 2 * q);
+        const float2 c1v = *reinterpret_cast<const float2*>(
+            Cs + (16 * i + g + 8) * LDC + 8 * kk + 2 * q);
+        const float2 bv = *reinterpret_cast<const float2*>(
+            Bs + (8 * j + g) * LDC + 8 * kk + 2 * q);
+        a.set(0, c0v.x), a.set(1, c1v.x), a.set(2, c0v.y), a.set(3, c1v.y);
+        bf.set(0, bv.x), bf.set(1, bv.y);
+        mma3_split(d, d1, d2, a, bf);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
+      for (int e = 0; e < 4; ++e) d[e] += d1[e] + d2[e];
+      store2(Gm + (16 * i + g) * LDG + 8 * j + 2 * q, d[0], d[1]);
+      store2(Gm + (16 * i + g + 8) * LDG + 8 * j + 2 * q, d[2], d[3]);
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    // Y[i][jj]: rows 16 i + g (+ 8), columns p0 + 8 jj + 2 q (+ 1).
+    float Y[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) Y[i][jj][e] = 0.f;
+
+    // Y = C S^T (the state as the chunk found it), then row t times
+    // exp(P_t).
+#pragma unroll
+    for (int kk = 0; kk < NTN; ++kk) {
+      Frag<2> sf0, sf1;
+      sf0.set(0, Sacc[kk][0]), sf0.set(1, Sacc[kk][1]);
+      sf1.set(0, Sacc[kk][2]), sf1.set(1, Sacc[kk][3]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        Frag<4> a;
+        const float2 c0v = *reinterpret_cast<const float2*>(
+            Cs + (16 * i + g) * LDC + 8 * kk + 2 * q);
+        const float2 c1v = *reinterpret_cast<const float2*>(
+            Cs + (16 * i + g + 8) * LDC + 8 * kk + 2 * q);
+        a.set(0, c0v.x), a.set(1, c1v.x), a.set(2, c0v.y), a.set(3, c1v.y);
+        mma3(Y[i][0], a, sf0);
+        mma3(Y[i][1], a, sf1);
+      }
+    }
+    const float* Ph = Ps + hl * SQ;
+    float pt[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      pt[i][0] = Ph[16 * i + g], pt[i][1] = Ph[16 * i + g + 8];
+      const float e0 = eP[hl * SQ + 16 * i + g];
+      const float e1 = eP[hl * SQ + 16 * i + g + 8];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        Y[i][jj][0] *= e0, Y[i][jj][1] *= e0;
+        Y[i][jj][2] *= e1, Y[i][jj][3] *= e1;
+      }
+    }
+
+    // Y += M x, M[t][s] = (C B^T)[t][s] exp(P_t - P_s) dt_s for s <= t,
+    // over the k-steps of 8 at or below each row tile's diagonal.
+#pragma unroll
+    for (int kk = 0; kk < SQ / 8; ++kk) {
+      const int sa = 8 * kk + q, sb_ = sa + 4;
+      Frag<2> xf[2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        xf[jj].set(0, Xh[sa * LDX + p0 + 8 * jj + g]);
+        xf[jj].set(1, Xh[sb_ * LDX + p0 + 8 * jj + g]);
+      }
+      const float psa = Ph[sa], psb = Ph[sb_];
+      const float dta = dth[sa], dtb = dth[sb_];
+#pragma unroll
+      for (int i = kk / 2; i < 2; ++i) {
+        const int t0 = 16 * i + g, t1 = t0 + 8;
+        auto m = [&](int t, int s, float ptv, float psv, float dtv) {
+          const float v = Gm[t * LDG + s] * expf(fminf(ptv - psv, 0.f)) * dtv;
+          return s <= t ? v : 0.f;
+        };
+        Frag<4> a;
+        a.set(0, m(t0, sa, pt[i][0], psa, dta));
+        a.set(1, m(t1, sa, pt[i][1], psa, dta));
+        a.set(2, m(t0, sb_, pt[i][0], psb, dtb));
+        a.set(3, m(t1, sb_, pt[i][1], psb, dtb));
+        mma3(Y[i][0], a, xf[0]);
+        mma3(Y[i][1], a, xf[1]);
+      }
+    }
+
+    // y = Y + D x for the chunk's real rows.
+    T* yb = y + b * sy.b + h * sy.h;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = 16 * i + g + 8 * half;
         if (t >= L) continue;
 #pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          const int p = tx + 16 * j;
-          const float out = acc[i][j] + ecum[t] * car[i][j] +
-                            Dh * Xs[t * HP + p];
-          yb[(int64_t)(c0 + t) * sy.t + p * sy.d] = from_float<T>(out);
+        for (int jj = 0; jj < 2; ++jj) {
+          const int p = p0 + 8 * jj + 2 * q;
+          const float2 xv = *reinterpret_cast<const float2*>(Xh + t * LDX + p);
+          store2(yb + (int64_t)(c0 + t) * sy.t + p,
+                 Y[i][jj][2 * half] + Dh * xv.x,
+                 Y[i][jj][2 * half + 1] + Dh * xv.y);
         }
       }
-    }
-    __syncthreads();  // every read of the state is done
 
-    // S <- exp(P_{L-1}) S + sum_s (wts_s x_s) B_s^T; each thread its tile.
-    {
-      const float decay = ecum[SQ - 1];
-      float acc[PJ][NJ];
+    // S <- exp(P_{L-1}) S + sum_s (w_s x_s) B_s^T (padded steps: dt = 0,
+    // so P_{SQ-1} = P_{L-1} and w_s = 0).
+    const float dec = eP[hl * SQ + SQ - 1];
+    const float* wh = ws + hl * SQ;
 #pragma unroll
-      for (int i = 0; i < PJ; ++i)
+    for (int j = 0; j < NTN; ++j)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          acc[i][j] = decay * Ss[(ty + 16 * i) * LN + tx + 16 * j];
-#pragma unroll 4
-      for (int s = 0; s < SQ; ++s) {
-        const float w = wts[s];
-        float xw[PJ], bv[NJ];
+      for (int e = 0; e < 4; ++e) Sacc[j][e] *= dec;
 #pragma unroll
-        for (int i = 0; i < PJ; ++i) xw[i] = w * Xs[s * HP + ty + 16 * i];
+    for (int kk = 0; kk < SQ / 8; ++kk) {
+      const int sa = 8 * kk + q, sb_ = sa + 4;
+      const float wa = wh[sa], wb = wh[sb_];
+      Frag<4> a;
+      a.set(0, wa * Xh[sa * LDX + p0 + g]);
+      a.set(1, wa * Xh[sa * LDX + p0 + g + 8]);
+      a.set(2, wb * Xh[sb_ * LDX + p0 + g]);
+      a.set(3, wb * Xh[sb_ * LDX + p0 + g + 8]);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) bv[j] = Bs[s * LN + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < PJ; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(xw[i], bv[j], acc[i][j]);
+      for (int j = 0; j < NTN; ++j) {
+        Frag<2> bf;
+        bf.set(0, Bs[sa * LDC + 8 * j + g]);
+        bf.set(1, Bs[sb_ * LDC + 8 * j + g]);
+        mma3(Sacc[j], a, bf);
       }
-#pragma unroll
-      for (int i = 0; i < PJ; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          Ss[(ty + 16 * i) * LN + tx + 16 * j] = acc[i][j];
     }
   }
-  __syncthreads();
-  for (int i = tid; i < HP * N; i += SNT)
-    s_out[sbase + i] = Ss[(i / N) * LN + i % N];
+
+  if (!active) return;
+#pragma unroll
+  for (int j = 0; j < NTN; ++j) {
+    store2(s_out + sbase + (p0 + g) * N + 8 * j + 2 * q, Sacc[j][0],
+           Sacc[j][1]);
+    store2(s_out + sbase + (p0 + g + 8) * N + 8 * j + 2 * q, Sacc[j][2],
+           Sacc[j][3]);
+  }
 }
 
 template <typename T, int HP, int N>
@@ -254,12 +357,13 @@ cudaError_t launch(const void* x, const void* Bm, const void* Cm,
                    const float* s0, void* y, float* s_out, int B, int T_len,
                    int nh, Strides sx, Strides3 sb, Strides3 sc, Strides3 sd,
                    Strides sy, cudaStream_t stream) {
-  const int smem = smem_floats<HP, N>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T, HP, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  using S_ = SsdShape<HP, N>;
+  constexpr int smem = S_::SMEM_FLOATS * (int)sizeof(float);
+  static unsigned long long done = 0;
+  cudaError_t err = set_smem_once(ssd_kernel<T, HP, N>, smem, &done);
   if (err != cudaSuccess) return err;
-  ssd_kernel<T, HP, N><<<dim3(nh, B), SNT, smem, stream>>>(
+  ssd_kernel<T, HP, N><<<dim3((nh + SG - 1) / SG, B), S_::NTH, smem,
+                         stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), dt, A, D, s0, static_cast<T*>(y), s_out,
       T_len, nh, sx, sb, sc, sd, sy);
@@ -312,8 +416,9 @@ cudaError_t dispatch(int hp, int N, const void* x, const void* Bm,
 // x [B, T, nh, hp] and y [B, T, nh, hp], each given by its element strides
 // in (b, h, t, d) order; Bm and Cm [B, T, N] and dt [B, T, nh] by theirs in
 // axis order; A, D [nh] f32 contiguous; s0 (may be null: zeros) and s_out
-// [B, nh, hp, N] f32 contiguous. Launches on `stream` and returns
-// cudaGetLastError() after the launch.
+// [B, nh, hp, N] f32 contiguous. x, y, Bm and Cm need a unit last stride,
+// and x, Bm and Cm 16-byte-aligned bases and strides. Launches on `stream`
+// and returns cudaGetLastError() after the launch.
 EXPORT int ssm_scan_fwd(
     int dtype, int hp, int N, const void* x, const void* Bm, const void* Cm,
     const void* dt, const void* A, const void* D, const void* s0, void* y,
@@ -323,7 +428,8 @@ EXPORT int ssm_scan_fwd(
     int64_t sc_b, int64_t sc_t, int64_t sc_n,
     int64_t sd_b, int64_t sd_t, int64_t sd_h,
     int64_t sy_b, int64_t sy_h, int64_t sy_t, int64_t sy_d, void* stream) {
-  if (B <= 0 || T <= 0 || nh <= 0 || !dt || !A || !D || !s_out)
+  if (B <= 0 || T <= 0 || nh <= 0 || !dt || !A || !D || !s_out ||
+      sx_d != 1 || sb_n != 1 || sc_n != 1 || sy_d != 1)
     return cudaErrorInvalidValue;
   const Strides sx{sx_b, sx_h, sx_t, sx_d}, sy{sy_b, sy_h, sy_t, sy_d};
   const Strides3 sb{sb_b, sb_t, sb_n}, sc{sc_b, sc_t, sc_n};

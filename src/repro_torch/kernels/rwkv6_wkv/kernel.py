@@ -1,12 +1,14 @@
 """Launcher of the Hopper RWKV6 WKV kernel.
 
 The kernel is CUDA C++ in `kernels/csrc/rwkv6_wkv.cu`, which carries the
-design note: it replaces `repro/kernels/rwkv6_wkv/kernel.py::rwkv6_wkv`,
-one block per (b, head) sweeps the chunks with the f32 state in shared
-memory, and the intra-chunk decay is computed per (t, s, channel) on the
-fly. This module checks the operands, allocates the output and the final
-state, and launches the kernel on the current stream through its C entry
-point.
+design note: it replaces `repro/kernels/rwkv6_wkv/kernel.py::rwkv6_wkv`;
+one block per (b, head) sweeps 32-step chunks with the f32 state in
+registers, the decay between 16-step sub-chunks factorised into tensor-core
+products (3xTF32). This module checks the operands, allocates the output
+and the final state, and launches the kernel on the current stream
+through its C entry point. r, k, v and lw are read by 16-byte copies: a
+base or stride that is not a multiple of 16 bytes raises ValueError
+(there is no fallback).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import functools
 import torch
 
 from .. import _build
+from .._layout import check_aligned
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
@@ -63,6 +66,7 @@ def _check(r, k, v, lw, u, state):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a unit stride on its last axis, "
                              f"got strides {t.stride()}")
+    check_aligned("rwkv6_wkv", r=r, k=k, v=v, lw=lw)
     if state is not None and (state.dtype != torch.float32
                               or state.shape != (B, H, hd, hd)
                               or not state.is_contiguous()):
@@ -75,10 +79,11 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               lw: torch.Tensor, u: torch.Tensor,
               state: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """r, k, v, lw [B,T,H,hd] of one dtype, any strides with a unit last
-    one; u [H,hd]; state [B,H,hd,hd] contiguous f32 or None (zeros); all
-    on one CUDA device. Returns (y [B,T,H,hd] contiguous in r's dtype,
-    final state [B,H,hd,hd] f32)."""
+    """r, k, v, lw [B,T,H,hd] of one dtype, any 16-byte-aligned strides
+    with a unit last one, 16-byte-aligned bases; u [H,hd]; state
+    [B,H,hd,hd] contiguous f32 or None (zeros); all on one CUDA device.
+    Returns (y [B,T,H,hd] contiguous in r's dtype, final state [B,H,hd,hd]
+    f32)."""
     _check(r, k, v, lw, u, state)
     B, T, H, hd = r.shape
     uf = u.to(torch.float32).contiguous()

@@ -1,11 +1,14 @@
 """Launcher of the Hopper Mamba2 SSD scan kernel.
 
 The kernel is CUDA C++ in `kernels/csrc/ssm_scan.cu`, which carries the
-design note: it replaces `repro/kernels/ssm_scan/kernel.py::ssm_scan`, and
-one block per (b, head) sweeps the chunks with the f32 state in shared
-memory. This module checks the operands, allocates the output and the
-final state, and launches the kernel on the current stream through its C
-entry point.
+design note: it replaces `repro/kernels/ssm_scan/kernel.py::ssm_scan`;
+one block per two heads of a batch row sweeps 32-step chunks, computing
+each chunk's C B^T once for both heads, with every product in 3xTF32 on
+the tensor cores and the f32 state in registers. This module checks the
+operands, allocates the output and the final state, and launches the
+kernel on the current stream through its C entry point. x, Bm and Cm are
+read by 16-byte copies: a base or stride that is not a multiple of 16
+bytes raises ValueError (there is no fallback).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import functools
 import torch
 
 from .. import _build
+from .._layout import check_aligned
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)          # hp
@@ -72,6 +76,7 @@ def _check(x, Bm, Cm, dt, A, D, state):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a unit stride on its last axis, "
                              f"got strides {t.stride()}")
+    check_aligned("ssm_scan", x=x, Bm=Bm, Cm=Cm)
     if min(dt.stride()) < 0:
         raise ValueError(f"dt has negative strides {dt.stride()}")
     if state is not None and (state.dtype != torch.float32
@@ -86,7 +91,8 @@ def ssm_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
              dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
              state: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B,T,nh,hp], Bm and Cm [B,T,N] of one dtype, unit last strides;
+    """x [B,T,nh,hp], Bm and Cm [B,T,N] of one dtype, unit last strides,
+    16-byte-aligned bases and strides;
     dt [B,T,nh] f32, any strides; A, D [nh]; state [B,nh,hp,N] contiguous
     f32 or None (zeros); all on one CUDA device. Returns (y [B,T,nh,hp]
     contiguous in x's dtype, D x included; final state [B,nh,hp,N] f32)."""

@@ -13,7 +13,8 @@ relative) and both attention kernels round P to bf16 before P V: atol
 row, which a key tile dropped or a padded key left in the softmax sum
 exceeds on the rows it touches. The two scans (ssm_scan, rwkv6_wkv) are
 held the same way, rows being the last axis of y, from a nonzero initial
-state, with their final state (always f32) at 2e-5.
+state, with their final state (always f32) at 2e-5; their f32 products run
+in 3xTF32 on the tensor cores, which keeps that bound.
 """
 import numpy as np
 import pytest
@@ -315,6 +316,30 @@ def test_kernels_refuse_misaligned_operands(dev):
         with pytest.raises(ValueError, match="16-byte"):
             decode_attention(good[:, :, :1], bad, good)
     assert (flash_attention.launches, decode_attention.launches) == n0
+    # The scans read x, Bm, Cm (ssm_scan) and r, k, v, lw (rwkv6_wkv) by
+    # 16-byte copies too.
+    n0 = (ssm_scan.launches, rwkv6_wkv.launches)
+    rng = np.random.default_rng(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, Bm, Cm, dt, A, D, _ = _ssm_case(rng, 1, 40, 2, 32, 16, dtype, dev)
+        flat = torch.zeros(x.numel() + 1, device=dev, dtype=dtype)
+        xbad = flat[1:].view(x.shape)
+        wide = torch.zeros(1, 40, 17, device=dev, dtype=dtype)
+        bbad = wide[..., 1:]                          # base off by 1 element
+        with pytest.raises(ValueError, match="16-byte"):
+            ssm_scan(xbad, Bm, Cm, dt, A, D)
+        with pytest.raises(ValueError, match="16-byte"):
+            ssm_scan(x, bbad, Cm, dt, A, D)
+        with pytest.raises(ValueError, match="16-byte"):
+            ssm_scan(x, Bm, torch.zeros(1, 40, 18, device=dev,
+                                        dtype=dtype)[..., :16], dt, A, D)
+        r, k, v, lw, u, _ = _wkv_case(rng, 1, 40, 2, 32, dtype, dev)
+        rbad = torch.zeros(r.numel() + 1, device=dev, dtype=dtype)[1:].view(
+            r.shape)
+        for args in ((rbad, k, v, lw), (r, k, v, rbad)):
+            with pytest.raises(ValueError, match="16-byte"):
+                rwkv6_wkv(*args, u)
+    assert (ssm_scan.launches, rwkv6_wkv.launches) == n0
 
 
 def _randn(rng, shape, dev, dtype=torch.float32, scale=1.0):
@@ -401,6 +426,133 @@ def test_wkv_kernel_survives_a_strong_decay(dev):
     want_y, want_s = rwkv6_wkv_ref(r, k, v, lw, u, s0)
     _assert_matches(y, want_y)
     torch.testing.assert_close(state, want_s, atol=F32_TOL, rtol=F32_TOL)
+
+
+def _check_scan(got, want):
+    """A scan's (y, final state) against its plain version's."""
+    _assert_matches(got[0], want[0])
+    assert got[1].dtype == torch.float32
+    torch.testing.assert_close(got[1], want[1], atol=F32_TOL, rtol=F32_TOL)
+
+
+SCAN_TS = [1, 2, 15, 16, 17, 63, 64, 65, 127, 128, 129]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", SCAN_TS)
+@pytest.mark.parametrize("hp", [32, 64])
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_tile_edges(dev, T, hp, N, dtype):
+    """Lengths around the 16-step tiles and the 32-step chunk, every head
+    and state width, an odd head count (the last head group half full)."""
+    rng = np.random.default_rng(T * 100 + hp + N)
+    x, Bm, Cm, dt, A, D, s0 = _ssm_case(rng, 2, T, 3, hp, N, dtype, dev)
+    got = ssm_scan(x, Bm, Cm, dt, A, D, s0)
+    torch.cuda.synchronize()
+    _check_scan(got, ssm_scan_ref(*_f32(x, Bm, Cm), dt, A, D, s0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", SCAN_TS)
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_tile_edges(dev, T, hd, dtype):
+    """Lengths around the 16-step sub-chunks and the 32-step chunk."""
+    rng = np.random.default_rng(T * 100 + hd)
+    r, k, v, lw, u, s0 = _wkv_case(rng, 2, T, 3, hd, dtype, dev)
+    got = rwkv6_wkv(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    _check_scan(got, rwkv6_wkv_ref(*_f32(r, k, v, lw), u, s0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", [1, 3, 7, 112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_head_groups(dev, nh, dtype):
+    """The block's group of two heads sharing C B^T: full groups, a last
+    group with one head, and the served width."""
+    rng = np.random.default_rng(nh)
+    x, Bm, Cm, dt, A, D, s0 = _ssm_case(rng, 2, 77, nh, 64, 64, dtype, dev)
+    got = ssm_scan(x, Bm, Cm, dt, A, D, s0)
+    torch.cuda.synchronize()
+    _check_scan(got, ssm_scan_ref(*_f32(x, Bm, Cm), dt, A, D, s0))
+
+
+@pytest.mark.cuda
+def test_ssm_kernel_survives_a_strong_decay(dev):
+    """dt up to 4 and A down to -30: a chunk's cumulative dt A lies far
+    below -88, where exp(-P) would overflow f32. The kernel takes only
+    differences within a chunk, so y and the state stay finite and match."""
+    rng = np.random.default_rng(13)
+    x, Bm, Cm, _, _, D, s0 = _ssm_case(rng, 2, 200, 3, 64, 64, torch.float32,
+                                       dev)
+    dt = torch.from_numpy(rng.uniform(0.5, 4.0, size=(2, 200, 3)).astype(
+        np.float32)).to(dev)
+    A = -torch.from_numpy(rng.uniform(5.0, 30.0, size=(3,)).astype(
+        np.float32)).to(dev)
+    assert (dt[:, :32] * A).sum(1).max().item() < -88
+    y, state = ssm_scan(x, Bm, Cm, dt, A, D, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    _check_scan((y, state), ssm_scan_ref(x, Bm, Cm, dt, A, D, s0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ssm_scan", "rwkv6_wkv"])
+@pytest.mark.parametrize("split", [1, 16, 31, 32, 100])
+def test_scan_kernels_carry_their_state(dev, kind, split):
+    """One call over T + T' equals a call over T and one over T' from its
+    final state, on the card."""
+    rng = np.random.default_rng(split)
+    T = 160
+    if kind == "ssm_scan":
+        *ins, s0 = _ssm_case(rng, 2, T, 3, 64, 64, torch.float32, dev)
+        op = ssm_scan
+    else:
+        *ins, s0 = _wkv_case(rng, 2, T, 3, 64, torch.float32, dev)
+        op = rwkv6_wkv
+
+    def run(sl, state):    # the first four operands run along T
+        return op(*(a[:, sl] for a in ins[:4]), *ins[4:], state)
+
+    y, s = run(slice(0, T), s0)
+    y1, s1 = run(slice(0, split), s0)
+    y2, s2 = run(slice(split, T), s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=F32_TOL,
+                               rtol=F32_TOL)
+    torch.testing.assert_close(s2, s, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_read_strided_views(dev, dtype):
+    """Operands as views into wider tensors (as a fused projection would
+    hand them over) and dt transposed: read through their strides, the
+    same answer as contiguous copies."""
+    rng = np.random.default_rng(3)
+    B, T, nh, hp, N = 2, 77, 3, 64, 32
+    x, Bm, Cm, dt, A, D, s0 = _ssm_case(rng, B, T, nh, hp, N, dtype, dev)
+    xw = torch.zeros(B, T, nh + 1, hp + 8, device=dev, dtype=dtype)
+    xw[:, :, 1:, 8:] = x
+    bc = torch.zeros(B, T, 2 * N + 8, device=dev, dtype=dtype)
+    bc[..., :N], bc[..., N + 8:] = Bm, Cm
+    dtw = dt.transpose(1, 2).contiguous().transpose(1, 2)
+    views = (xw[:, :, 1:, 8:], bc[..., :N], bc[..., N + 8:], dtw)
+    assert not any(v.is_contiguous() for v in views)
+    got = ssm_scan(*views, A, D, s0)
+    for a, b in zip(got, ssm_scan(x, Bm, Cm, dt, A, D, s0)):
+        assert torch.equal(a, b)
+    _check_scan(got, ssm_scan_ref(*_f32(x, Bm, Cm), dt, A, D, s0))
+
+    r, k, v, lw, u, w0 = _wkv_case(rng, B, T, nh, 64, dtype, dev)
+    big = torch.zeros(B, T, nh, 4 * 64 + 8, device=dev, dtype=dtype)
+    for i, t in enumerate((r, k, v, lw)):
+        big[..., 8 + 64 * i:8 + 64 * (i + 1)] = t
+    views = [big[..., 8 + 64 * i:8 + 64 * (i + 1)] for i in range(4)]
+    got = rwkv6_wkv(*views, u, w0)
+    for a, b in zip(got, rwkv6_wkv(r, k, v, lw, u, w0)):
+        assert torch.equal(a, b)
+    _check_scan(got, rwkv6_wkv_ref(*_f32(r, k, v, lw), u, w0))
 
 
 @pytest.mark.cuda

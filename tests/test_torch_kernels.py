@@ -39,8 +39,10 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import ssm_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.models.mamba2 import _ssd_chunked  # noqa: E402
 from repro_torch.models.rwkv6 import _wkv_chunked  # noqa: E402
 
@@ -493,3 +495,195 @@ def test_scan_final_state_matches_reference_model(kind):
     _close(state, want_s, 1e-4)
     ref_y = (ssm_jnp if kind == "ssm_scan" else wkv_jnp)(*args)
     _close(y, ref_y, 1e-4)
+
+
+# ------------------------------------ the scan kernels' arithmetic, on CPU
+#
+# The CUDA scans run every product on the tensor cores in 3xTF32 and
+# reorganise the chunked closed form (32-step chunks; C B^T computed once
+# per batch row for all heads; the WKV decay factorised between 16-step
+# sub-chunks). No kernel runs here, so these plain functions repeat that
+# algebra in torch, with TF32 rounding emulated by masking mantissa bits,
+# and are held against the stepwise plain versions at the kernels' own
+# f32 tolerance (2e-5), at served widths. 1xTF32 must fail that bound.
+
+_LOG2E = 1.4426950408889634
+
+
+def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """x cut to TF32 (10 mantissa bits) as the kernels' `split_tf32` does
+    it, by bit operations: rounded to nearest with ties away from zero, or
+    truncated."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + (0x1000 if rounded else 0)) & -0x2000).view(
+        torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b on TF32 tensor cores: passes 3 is 3xTF32 (hi*hi + hi*lo +
+    lo*hi, hi rounded and lo = x - hi truncated), passes 1 a single TF32
+    product of the rounded operands."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _ssd_tensor_core(x, Bm, Cm, dt, A, D, S, passes=3, Q=32):
+    """ssm_scan.cu's algebra: per chunk one C B^T per batch row, shared by
+    the heads, each head applying exp(P_t - P_s) dt_s; the four products
+    through `_mm`."""
+    T = x.shape[1]
+    S = S.clone()
+    ys = []
+    for c0 in range(0, T, Q):
+        xc, Bc, Cc, dtc = (a[:, c0:c0 + Q] for a in (x, Bm, Cm, dt))
+        L = xc.shape[1]
+        P = torch.cumsum(dtc * A, dim=1)                          # [B,L,nh]
+        G = _mm(Cc, Bc.transpose(1, 2), passes)                   # [B,t,s]
+        rel = (P[:, :, None] - P[:, None]).clamp(max=0.0)         # [B,t,s,nh]
+        causal = torch.tril(torch.ones(L, L, dtype=torch.bool))
+        M = torch.where(causal[None, :, :, None],
+                        G[..., None] * torch.exp(rel) * dtc[:, None], 0.0)
+        xh = xc.permute(0, 2, 1, 3)                               # [B,nh,s,p]
+        y = (torch.exp(P).permute(0, 2, 1)[..., None]
+             * _mm(Cc[:, None], S.transpose(-1, -2), passes))
+        y = y + _mm(M.permute(0, 3, 1, 2), xh, passes)
+        w = (torch.exp(P[:, -1:] - P) * dtc).permute(0, 2, 1)     # [B,nh,s]
+        S = (S * torch.exp(P[:, -1])[..., None, None]
+             + _mm((xh * w[..., None]).transpose(-1, -2), Bc[:, None],
+                   passes))
+        ys.append(y.permute(0, 2, 1, 3) + D[:, None] * xc)
+    return torch.cat(ys, dim=1), S
+
+
+def _wkv_tensor_core(r, k, v, lw, u, S, passes=3, Q=32, sub=16):
+    """rwkv6_wkv.cu's algebra: base-2 cumulative decays; between
+    sub-chunks A[t][s] = (r_t 2^{C[t]-C[m]}) . (k_s 2^{C[m]-C[s+1]}) through
+    `_mm`, m the first step of t's sub-chunk; the diagonal blocks with
+    explicit exponentials and the bonus in plain f32; A V, (r 2^C) S and
+    the state update through `_mm`."""
+    r, k, v, lw = (a.permute(0, 2, 1, 3) for a in (r, k, v, lw))  # [B,H,T,hd]
+    T = r.shape[2]
+    S = S.clone()
+    ys = []
+    for c0 in range(0, T, Q):
+        rc, kc, vc, lc = (a[:, :, c0:c0 + Q] for a in (r, k, v, lw))
+        L = rc.shape[2]
+        C = torch.cat([torch.zeros_like(lc[:, :, :1]),
+                       torch.cumsum(lc * _LOG2E, dim=2)], dim=2)  # [B,H,L+1,hd]
+        A = torch.zeros(rc.shape[:2] + (L, L))
+        for m in range(0, L, sub):
+            t = slice(m, min(m + sub, L))
+            n = t.stop - m
+            # Diagonal block: s < t explicit, bonus on the diagonal.
+            rel = (C[:, :, t, None] - C[:, :, None, m + 1:t.stop + 1]
+                   ).clamp(max=0.0)                               # [B,H,t,s,hd]
+            blk = torch.einsum("bhtc,bhtsc,bhsc->bhts", rc[:, :, t],
+                               torch.exp2(rel), kc[:, :, t])
+            lower = torch.tril(torch.ones(n, n, dtype=torch.bool), -1)
+            bonus = torch.einsum("bhtc,hc,bhtc->bht", rc[:, :, t], u,
+                                 kc[:, :, t])
+            A[:, :, t, t] = (torch.where(lower, blk, 0.0)
+                             + torch.diag_embed(bonus))
+            if m:
+                Rt = rc[:, :, t] * torch.exp2(C[:, :, t] - C[:, :, m:m + 1])
+                Kt = kc[:, :, :m] * torch.exp2(C[:, :, m:m + 1]
+                                               - C[:, :, 1:m + 1])
+                A[:, :, t, :m] = _mm(Rt, Kt.transpose(-1, -2), passes)
+        CL = C[:, :, L:L + 1]
+        y = (_mm(rc * torch.exp2(C[:, :, :L]), S, passes)
+             + _mm(A, vc, passes))
+        Kh = kc * torch.exp2(CL - C[:, :, 1:])
+        S = (torch.exp2(CL).transpose(-1, -2) * S
+             + _mm(Kh.transpose(-1, -2), vc, passes))
+        ys.append(y)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3), S
+
+
+def _ssd_case(rng, B, T, nh, hp, N, strong):
+    """The tests' SSD inputs, or a strong decay (dt up to 4, A down to
+    -30: a chunk's cumulative dt A far below -88)."""
+    x, Bm, Cm, dt, A, D = (t for _, t in _ssm_inputs(rng, B, T, nh, hp, N,
+                                                      "float32"))
+    if strong:
+        dt = torch.from_numpy(rng.uniform(0.5, 4.0, size=(B, T, nh)).astype(
+            np.float32))
+        A = -torch.from_numpy(rng.uniform(5.0, 30.0, size=(nh,)).astype(
+            np.float32))
+    S0 = torch.from_numpy(rng.normal(size=(B, nh, hp, N)).astype(np.float32))
+    return x, Bm, Cm, dt, A, D, S0
+
+
+def _budget(got, want, tol=2e-5) -> float:
+    """Largest |got - want| / (tol + tol |want|): 1 uses the bound up."""
+    return ((got - want).abs() / (tol + tol * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_tensor_core_algebra_holds_f32_tolerance(strong):
+    rng = np.random.default_rng(41 + strong)
+    x, Bm, Cm, dt, A, D, S0 = _ssd_case(rng, 1, 999, 2, 64, 64, strong)
+    if strong:
+        assert (dt[0, :32] * A).sum(0).max().item() < -88
+    want_y, want_s = ssm_scan_ref(x, Bm, Cm, dt, A, D, S0)
+    y, s = _ssd_tensor_core(x, Bm, Cm, dt, A, D, S0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert _budget(y, want_y) <= 1.0
+    assert _budget(s, want_s) <= 1.0
+
+
+@pytest.mark.parametrize("decay_shift", [-1.5, 1.5])
+def test_wkv_subchunk_algebra_holds_f32_tolerance(decay_shift):
+    rng = np.random.default_rng(43)
+    r, k, v, lw, u = (t for _, t in _wkv_inputs(rng, 1, 999, 2, 64,
+                                                 decay_shift))
+    if decay_shift > 0:
+        assert lw[0, :32].sum(0).min().item() < -88
+    S0 = torch.from_numpy(rng.normal(size=(1, 2, 64, 64)).astype(np.float32))
+    want_y, want_s = rwkv6_wkv_ref(r, k, v, lw, u, S0)
+    y, s = _wkv_tensor_core(r, k, v, lw, u, S0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert _budget(y, want_y) <= 1.0
+    assert _budget(s, want_s) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["ssm_scan", "rwkv6_wkv"])
+def test_one_tf32_product_fails_the_f32_tolerance(kind):
+    """The reason for three products: a single TF32 product per operand
+    pair misses 2e-5 by orders of magnitude on the same inputs."""
+    rng = np.random.default_rng(47)
+    if kind == "ssm_scan":
+        ins = _ssd_case(rng, 1, 256, 2, 64, 64, False)
+        want, _ = ssm_scan_ref(*ins)
+        got3, _ = _ssd_tensor_core(*ins)
+        got1, _ = _ssd_tensor_core(*ins, passes=1)
+    else:
+        ins = [t for _, t in _wkv_inputs(rng, 1, 256, 2, 64)]
+        ins.append(torch.from_numpy(rng.normal(size=(1, 2, 64, 64)).astype(
+            np.float32)))
+        want, _ = rwkv6_wkv_ref(*ins)
+        got3, _ = _wkv_tensor_core(*ins)
+        got1, _ = _wkv_tensor_core(*ins, passes=1)
+    assert _budget(got3, want) <= 1.0
+    assert _budget(got1, want) > 10.0
+
+
+def test_tf32_rounding_emulation():
+    """_tf32 keeps 10 mantissa bits, rounding to nearest with ties away
+    from zero (or truncating); hi + lo of the split holds an f32 to
+    ~2^-21."""
+    one = torch.tensor([1.0])
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 4, -(1 + ulp / 2), 1 + ulp])
+    torch.testing.assert_close(_tf32(x), torch.tensor(
+        [1 + ulp, 1.0, -(1 + ulp), 1 + ulp]), atol=0, rtol=0)
+    assert _tf32(one).item() == 1.0
+    a = torch.from_numpy(np.random.default_rng(0).normal(size=1000).astype(
+        np.float32))
+    assert _tf32(torch.tensor([1 + ulp * 0.99]), False).item() == 1.0
+    hi = _tf32(a)
+    lo = _tf32(a - hi, False)
+    assert ((hi - a).abs() <= a.abs() * 2.0 ** -11).all()
+    assert ((hi + lo - a).abs() <= a.abs() * 2.0 ** -21).all()
