@@ -38,9 +38,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      line);
   7. trace one more served batch of each model with torch.profiler: the
      device's busy share of the batch's wall time and the kernels that
-     take the most.
+     take the most;
+  8. plan -> stress test on the card: `plan("agh", risk=...)` on the risk
+     benchmark's instance (random_instance(20, 20, 20, seed=42)) runs the
+     f64 Stage-2 risk solver on CUDA at S 20,000; then, warm, it times
+     `risk_evaluate` of the gh plan at S 20,000 and 100,000,
+     `rank_deployments` of both plans at 1.5x stress and a batch forced
+     through restarted PDHG (max_anchors 0), and the same S 20,000 run on
+     the CPU; it holds the first 2,000 scenarios' costs, and the forced
+     batch's, against the exact HiGHS oracle at rtol 1e-5, checks that
+     every run accounts for each scenario once, and profiles one run
+     (device programs, host syncs, launches, busy share, peak memory).
 
-The line before the last is the kernel table as JSON; the last line is
+Phase 8 prints its numbers as one JSON line {"risk": ...}. The line
+before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the run fails.
 """
 from __future__ import annotations
@@ -53,6 +64,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -784,6 +796,276 @@ def time_kernels(main, errs, launches_by_path):
     return rows
 
 
+# Phase 8: the risk benchmark's instance (benchmarks/risk_scaling.py), its
+# scenario counts (the protocol's default and S_LIST_FULL's largest), the
+# count up to which it measures the exact oracle before extrapolating, and
+# the size of the batch forced through restarted PDHG.
+RISK_SIZE, RISK_SEED = (20, 20, 20), 42
+RISK_S = (20_000, 100_000)
+RISK_ORACLE_S = 2_000
+RISK_FORCED_S = 1024
+RISK_RTOL = 1e-5
+
+
+def risk_counts() -> dict:
+    """The risk solver's device programs run and device-to-host copies made
+    so far (candidate calls, PDHG blocks, host syncs)."""
+    from repro_torch.risk import solver as rs
+    return {"candidate_calls": rs._candidate_kernel.calls,
+            "pdhg_blocks": rs._pdhg_block.calls,
+            "host_syncs": rs._to_host.syncs}
+
+
+def reset_risk_counts() -> None:
+    from repro_torch.risk import solver as rs
+    rs._candidate_kernel.calls = rs._pdhg_block.calls = 0
+    rs._to_host.syncs = 0
+
+
+def check_accounting(label, diag, S) -> None:
+    """Every scenario lands in exactly one of the solver's buckets."""
+    n = (diag["n_anchor0"] + diag["n_harvest_exact"] + diag["n_pdhg"]
+         + diag["n_fallback_exact"])
+    if n != S:
+        fail(f"{label}: the diagnostics account for {n} of {S} scenarios "
+             f"({diag})")
+
+
+def check_oracle(label, got, want) -> float:
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    ok = rel <= RISK_RTOL
+    print(f"  {label}: {len(got)} scenarios, largest relative cost error "
+          f"vs the exact oracle {rel:.3e} (tol {RISK_RTOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{label} disagrees with the exact oracle")
+    return rel
+
+
+def timed_risk(label, fn, S):
+    """Run `fn` (-> RiskReport) once on the card with the counts set to 0
+    just before; returns (report, wall s, counts)."""
+    reset_risk_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = risk_counts()
+    check_accounting(label, rep.diagnostics, S)
+    d = rep.diagnostics
+    print(f"  {label}: {wall:.3f} s, E[cost] {rep.expected_cost:.4f}, "
+          f"CVaR_0.95 {rep.cvar['0.95']:.4f}, anchors {d['n_anchors']}, "
+          f"anchor0 {d['n_anchor0']}, harvests {d['n_harvest_exact']}, "
+          f"pdhg {d['n_pdhg']}, fallbacks {d['n_fallback_exact']}; "
+          f"{counts}", flush=True)
+    return rep, wall, counts
+
+
+def split_risk_time(fn) -> dict:
+    """One more run of `fn`, with the host's time inside the solver's
+    device programs (issuing their launches), inside its device-to-host
+    copies (waiting for the device included) and elsewhere (numpy, HiGHS,
+    Python) taken apart by timing each call of the three functions."""
+    from repro_torch.risk import solver as rs
+
+    spent = {"_candidate_kernel": 0.0, "_pdhg_block": 0.0, "_to_host": 0.0}
+    originals = {name: getattr(rs, name) for name in spent}
+
+    def timed(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return originals[name](*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        # The originals count through their module-level names, which are
+        # this wrapper while it is installed: this run is not counted.
+        call.calls = call.syncs = 0
+        return call
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for name in spent:
+            setattr(rs, name, timed(name))
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, f in originals.items():
+            setattr(rs, name, f)
+    wall = time.perf_counter() - t0
+    split = {"wall_s": wall,
+             "programs_s": spent["_candidate_kernel"] + spent["_pdhg_block"],
+             "copies_s": spent["_to_host"]}
+    split["other_host_s"] = wall - split["programs_s"] - split["copies_s"]
+    print(f"  host time of one more run: {wall:.3f} s = issuing device "
+          f"programs {split['programs_s']:.3f} s + device-to-host copies "
+          f"(waits included) {split['copies_s']:.3f} s + other host work "
+          f"{split['other_host_s']:.3f} s", flush=True)
+    return split
+
+
+def profile_risk(fn) -> dict:
+    """One more run of `fn` under torch.profiler (device activity only):
+    CUDA kernels launched, device busy time (kernels and copies) and its
+    share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        print("  device trace: not measured (the profiler saw no CUDA "
+              "kernels)")
+        return {"launches": None, "busy_ms": None, "busy": None,
+                "traced_wall_ms": wall_ms}
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    copies = [e for e in rows if e.key.startswith(("Memcpy", "Memset"))]
+    launches = sum(e.count for e in rows) - sum(e.count for e in copies)
+    print(f"  traced run {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% busy), {launches} kernel "
+          f"launches, {sum(e.count for e in copies)} copies/sets")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:7d}x  {e.key[:90]}")
+    return {"launches": launches, "busy_ms": busy_ms,
+            "busy": busy_ms / wall_ms, "traced_wall_ms": wall_ms}
+
+
+def risk_stress_test() -> dict:
+    """Phase 8: plan -> stress test on the card, through the port's entry
+    points. Returns the phase's numbers."""
+    from repro_torch.core import ScenarioBatch, random_instance
+    from repro_torch.core.stage2 import Stage2System
+    from repro_torch.planner import PlanOptions, plan
+    from repro_torch.risk import rank_deployments, risk_evaluate
+    from repro_torch.risk.api import PROTOCOL
+    from repro_torch.risk.solver import BatchedStage2Solver
+    from repro_torch.risk.solver_exact import ExactChunkSolver
+
+    out = {}
+    inst = random_instance(*RISK_SIZE, seed=RISK_SEED)
+    t0 = time.perf_counter()
+    res = plan("agh", instance=inst,
+               options=PlanOptions(risk={"S": RISK_S[0]}))
+    out["plan_with_risk_s"] = time.perf_counter() - t0
+    row = res.diagnostics["risk"]
+    check_accounting("plan(risk=...)", row, RISK_S[0])
+    print(f"  plan('agh', risk={{'S': {RISK_S[0]}}}) on {RISK_SIZE} seed "
+          f"{RISK_SEED} (first, cold run): {out['plan_with_risk_s']:.2f} s; "
+          f"objective {res.objective:.4f}; risk {row}", flush=True)
+    agh_plan = res.solution
+    gh_plan = plan("gh", instance=inst).solution
+
+    # The first chunk of the S 20,000 stream, solved as risk_evaluate's
+    # first chunk is (a fresh solver), against the oracle on its first
+    # 2,000 scenarios; the oracle's wall is measured there.
+    system = Stage2System(inst, gh_plan)
+    kw = dict(d_infl=PROTOCOL["d_infl"], e_infl=PROTOCOL["e_infl"],
+              lam_pm=PROTOCOL["lam_pm"])
+    first = next(inst.perturbed_chunks(np.random.default_rng(PROTOCOL["seed"]),
+                                       RISK_S[0], chunk=8192, **kw))
+    card = BatchedStage2Solver(system).solve_scenarios(first)
+    head = ScenarioBatch(S=RISK_ORACLE_S, tau=first.tau[:RISK_ORACLE_S],
+                         e_base=first.e_base[:RISK_ORACLE_S],
+                         lam=first.lam[:RISK_ORACLE_S])
+    t0 = time.perf_counter()
+    exact = ExactChunkSolver(system).solve_scenarios(head)
+    out["exact_wall_s"] = {RISK_ORACLE_S: time.perf_counter() - t0}
+    for S in RISK_S:
+        out["exact_wall_s"][S] = (out["exact_wall_s"][RISK_ORACLE_S]
+                                  * S / RISK_ORACLE_S)
+    out["oracle_max_rel_err"] = check_oracle(
+        f"gh plan, first {RISK_ORACLE_S} of S={RISK_S[0]}",
+        card.costs[:RISK_ORACLE_S], exact.costs)
+    print(f"  exact oracle (HiGHS, host): {out['exact_wall_s'][RISK_ORACLE_S]:.3f}"
+          f" s for {RISK_ORACLE_S} scenarios; extrapolated "
+          + ", ".join(f"{out['exact_wall_s'][S]:.1f} s at S={S}"
+                      for S in RISK_S), flush=True)
+
+    # Timed runs, warm (the plan's run above built the library handles).
+    out["runs"] = {}
+    for S in RISK_S:
+        if S == RISK_S[-1]:
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        _, wall, counts = timed_risk(
+            f"risk_evaluate(gh plan, S={S})",
+            lambda S=S: risk_evaluate(inst, gh_plan, S=S), S)
+        out["runs"][f"gh_S{S}"] = dict(wall_s=wall, **counts)
+    # The run's own peak, above what earlier phases still hold.
+    out["peak_mem_gib"] = ((torch.cuda.max_memory_allocated() - held)
+                           / 2 ** 30)
+    print(f"  peak device memory of the S={RISK_S[-1]} run: "
+          f"{out['peak_mem_gib']:.3f} GiB above the {held / 2 ** 30:.3f} GiB "
+          f"held before it")
+
+    reset_risk_counts()
+    t0 = time.perf_counter()
+    rk = rank_deployments(inst, {"gh": gh_plan, "agh": agh_plan},
+                          S=RISK_S[0], stress=1.5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, rep in rk["reports"].items():
+        check_accounting(f"rank_deployments {name}", rep.diagnostics,
+                         RISK_S[0])
+    out["runs"][f"rank_S{RISK_S[0]}_stress1.5"] = dict(wall_s=wall,
+                                                       **risk_counts())
+    buckets = ("n_anchors", "n_anchor0", "n_harvest_exact", "n_pdhg",
+               "n_fallback_exact")
+    diags = {k: {b: row[b] for b in buckets}
+             for k, row in rk["summaries"].items()}
+    print(f"  rank_deployments(gh, agh, S={RISK_S[0]}, stress 1.5): "
+          f"{wall:.3f} s; by expected cost {rk['ranking_expected']}, by "
+          f"CVaR_0.95 {rk['ranking_cvar']}; {diags}; {risk_counts()}",
+          flush=True)
+
+    # Restarted PDHG, forced: the anchor set frozen at the seed anchor.
+    forced = inst.perturbed_batch(np.random.default_rng(5), RISK_FORCED_S,
+                                  **kw)
+    solver = BatchedStage2Solver(system, max_anchors=0)
+    reset_risk_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = solver.solve_scenarios(forced)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = solver.diagnostics
+    check_accounting("forced PDHG", d, RISK_FORCED_S)
+    print(f"  forced PDHG batch S={RISK_FORCED_S}: {wall:.3f} s, {d}, "
+          f"{risk_counts()}", flush=True)
+    if d["n_pdhg"] <= 0:
+        fail("the forced batch never ran PDHG")
+    out["runs"][f"forced_pdhg_S{RISK_FORCED_S}"] = dict(
+        wall_s=wall, pdhg_iters=d["pdhg_iters_max"], n_pdhg=d["n_pdhg"],
+        n_fallback_exact=d["n_fallback_exact"], **risk_counts())
+    out["forced_max_rel_err"] = check_oracle(
+        f"forced PDHG S={RISK_FORCED_S}", got.costs,
+        ExactChunkSolver(system).solve_scenarios(forced).costs)
+
+    # The port on the host CPU, same machine, same run.
+    t0 = time.perf_counter()
+    rep = risk_evaluate(inst, gh_plan, S=RISK_S[0], device="cpu")
+    out["cpu_wall_s"] = time.perf_counter() - t0
+    check_accounting("risk_evaluate on the CPU", rep.diagnostics, RISK_S[0])
+    print(f"  the same S={RISK_S[0]} run with device='cpu': "
+          f"{out['cpu_wall_s']:.3f} s ({torch.get_num_threads()} threads)")
+
+    run = lambda: risk_evaluate(inst, gh_plan, S=RISK_S[0])
+    t0 = time.perf_counter()
+    out["profile"] = profile_risk(run)
+    print(f"  (profiling took {time.perf_counter() - t0:.1f} s)")
+    out["host_split"] = split_risk_time(run)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -846,7 +1128,13 @@ def main(argv=None) -> int:
         if tr:
             print(f"  {arch}: {100 * tr['busy']:.1f}% busy over a "
                   f"{tr['wall_ms']:.1f} ms batch, {tr['launches']} launches")
+
+    phase("8. plan -> stress test on the card")
+    t0 = time.perf_counter()
+    risk = risk_stress_test()
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"risk": risk}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -26,18 +26,10 @@ from ..core import agh, default_instance, to_deployment
 from ..core.bridge import DeploymentSpec
 from ..core.instance import Instance
 from ..core.solution import Solution
+from ..device import resolve_device
 from ..models import decoder
 from ..models.config import ModelConfig
 from ..serving.engine import Engine, Request
-
-
-def resolve_device(device: str = "cuda") -> torch.device:
-    """The device to run on; raises rather than fall back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu "
-                           "(device='cpu') to run on the CPU")
-    return dev
 
 
 def plan_fleet(seed: int = 0) -> tuple[Instance, Solution, DeploymentSpec]:

@@ -594,3 +594,83 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         rwkv6_wkv(r, k, v, lw, u, w0[:, :1].contiguous())
     with pytest.raises(ValueError, match="head dim"):
         rwkv6_wkv(*(t[..., :48] for t in (r, k, v, lw)), u[:, :48])
+
+
+# -- the Stage-2 risk solver in f64 on the card --------------------------
+# Its device programs are plain torch operations, not hand-written kernels;
+# these tests hold the card's run against the port's exact oracle (HiGHS on
+# the host), against its own device="cpu" run and against itself.
+
+def _risk_case(case):
+    """(system, batch, solver kwargs): the gh plan of a small instance at
+    the evaluation protocol's perturbations; the agh plan of the risk
+    scaling instance at 1.5x stress (the 24-row Woodbury class); the small
+    case again with the anchor set frozen, so that PDHG solves the misses."""
+    from repro_torch.core import agh, gh, random_instance
+    from repro_torch.core.stage2 import Stage2System
+    from repro_torch.risk.api import PROTOCOL
+
+    if case == "stressed":
+        big = random_instance(20, 20, 20, seed=42)
+        inst, dep, S, seed, kw = big.stressed(1.5), agh(big), 1024, None, {}
+    else:
+        inst = random_instance(10, 8, 8, seed=7)
+        dep = gh(inst)
+        S, seed, kw = ((2048, None, {}) if case == "nominal"
+                       else (256, 5, {"max_anchors": 0}))
+    rng = np.random.default_rng(PROTOCOL["seed"] if seed is None else seed)
+    batch = inst.perturbed_batch(rng, S, d_infl=PROTOCOL["d_infl"],
+                                 e_infl=PROTOCOL["e_infl"],
+                                 lam_pm=PROTOCOL["lam_pm"])
+    return Stage2System(inst, dep), batch, kw
+
+
+def _risk_solve(case, device):
+    from repro_torch.risk.solver import BatchedStage2Solver
+
+    system, batch, kw = _risk_case(case)
+    solver = BatchedStage2Solver(system, device=device, **kw)
+    out = solver.solve_scenarios(batch)
+    d = solver.diagnostics
+    assert d["n_scenarios"] == batch.S
+    assert (d["n_anchor0"] + d["n_harvest_exact"] + d["n_pdhg"]
+            + d["n_fallback_exact"]) == batch.S
+    return out, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nominal", "stressed", "forced"])
+def test_risk_solver_on_card_matches_oracle(dev, case):
+    from repro_torch.risk.solver_exact import ExactChunkSolver
+
+    out, d = _risk_solve(case, "cuda")
+    system, batch, _ = _risk_case(case)
+    want = ExactChunkSolver(system).solve_scenarios(batch)
+    np.testing.assert_allclose(out.costs, want.costs, rtol=1e-5)
+    np.testing.assert_array_equal(out.viols, want.viols)
+    if case == "forced":
+        assert d["n_pdhg"] > 0
+    else:
+        assert d["n_anchor0"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nominal", "stressed"])
+def test_risk_solver_card_equals_cpu(dev, case):
+    """The anchor path's costs agree to 1e-9 relative, with equal counts.
+    (Restarted PDHG adapts its step weights from ratios of iterate
+    differences and amplifies rounding, so the forced-PDHG case is held to
+    the oracle above, not to the CPU's iteration counts.)"""
+    got, d_got = _risk_solve(case, "cuda")
+    want, d_want = _risk_solve(case, "cpu")
+    np.testing.assert_allclose(got.costs, want.costs, rtol=1e-9, atol=0)
+    assert d_got == d_want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nominal", "stressed", "forced"])
+def test_risk_solver_on_card_is_deterministic(dev, case):
+    a, d_a = _risk_solve(case, "cuda")
+    b, d_b = _risk_solve(case, "cuda")
+    assert np.array_equal(a.costs, b.costs)
+    assert d_a == d_b

@@ -106,7 +106,9 @@ def _port_modules() -> list[str]:
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "repro_torch.kernels.flash_attention.kernel" in mods
+    for m in ("repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.planner.api", "repro_torch.risk.solver"):
+        assert m in mods, m
     code = ("import importlib, sys; sys.modules['jax'] = None; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
