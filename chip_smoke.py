@@ -48,11 +48,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the CPU; it holds the first 2,000 scenarios' costs, and the forced
      batch's, against the exact HiGHS oracle at rtol 1e-5, checks that
      every run accounts for each scenario once, and profiles one run
-     (device programs, host syncs, launches, busy share, peak memory).
+     (device programs, host syncs, launches, busy share, peak memory);
+  9. plan on the card, replan in the loop: AGH on random_instance(200,
+     160, 80, seed=42) (benchmarks/allocator_scaling.py's largest size)
+     with the numpy engine and with the lane-batched torch tier on CUDA
+     (a cold run, then a timed one): both objectives (numpy must be the
+     reference's, the tier no worse than numpy's), walls, lanes and
+     orderings, device calls, screen verdicts and the cost gate's
+     verdict, peak device memory, and one phase-2 and one screen call
+     replayed under torch.profiler (launches, copies, device time); then
+     benchmarks/serve_closed_loop.py's forecast-mode day (random_instance
+     (100, 80, 40, seed=42) under a 0.65 queueing margin, the "busy"
+     diurnal day in 300 s windows, rate scale 0.005, seed 1) served once
+     with a numpy PlanSession and once with PlanSession(engine="torch"),
+     whose replans must be the numpy session's and no worse.
 
-Phase 8 prints its numbers as one JSON line {"risk": ...}. The line
-before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the run fails.
+Phases 8 and 9 print their numbers as JSON lines {"risk": ...},
+{"allocator": ...} and {"closed_loop": ...}. The line before the last is
+the kernel table as JSON; the last line is {"ok": true, "device":
+{...}}. Without a CUDA device the run fails. To run phase 9 alone on a
+card: python -c "import chip_smoke as cs; cs.plan_and_replan()".
 """
 from __future__ import annotations
 
@@ -1066,6 +1081,270 @@ def risk_stress_test() -> dict:
     return out
 
 
+# Phase 9: AGH at benchmarks/allocator_scaling.py's largest size on both
+# engines, then benchmarks/serve_closed_loop.py's forecast-mode day with
+# every replan on the card. The reference's objectives and replan count on
+# the same instances (numpy and xla alike, seeded, so the port's numpy
+# engine must give the same) are recorded in CHANGES.md.
+TIER_SIZE, TIER_SEED = (200, 160, 80), 42
+TIER_REF_OBJECTIVE = 849.8622
+LOOP_SIZE, LOOP_SEED = (100, 80, 40), 42
+LOOP_RHO_MAX = 0.65
+LOOP_TRAFFIC = dict(horizon_s=86400.0, window_s=300.0, rate_scale=0.005,
+                    trace="busy", seed=1)
+LOOP_FORECAST = dict(drift_threshold=0.5, cooldown=6, ewma_alpha=0.5)
+LOOP_REF_COLD_OBJECTIVE = 768.1072
+LOOP_REF_REPLANS = 14
+TIER_RTOL = 1e-6        # the tier may only match or beat numpy
+
+
+def _recording_tier(record: dict):
+    """Wrap the tier's two programs for one solve: keep the first phase-2
+    call's inputs and the widest screen call's, and add up the host time
+    inside the phase-2 calls (the screen's is the solve's `screen_s`).
+    Returns the undo function."""
+    from repro_torch.core import tier_kernels as tk
+
+    p2, sc = tk.phase2_keys, tk.screen_sources
+    record.update(phase2_s=0.0, phase2_args=None, screen_args=None)
+
+    def phase2_keys(tx, items, counters=None):
+        if record["phase2_args"] is None:
+            record["phase2_args"] = (tx, [tuple(a.copy() if isinstance(
+                a, np.ndarray) else a for a in it) for it in items])
+        t0 = time.perf_counter()
+        try:
+            return p2(tx, items, counters)
+        finally:
+            record["phase2_s"] += time.perf_counter() - t0
+
+    def screen_sources(tx, groups, srcs, load, counters=None):
+        widest = record["screen_args"]
+        if widest is None or len(srcs) > len(widest[2]):
+            record["screen_args"] = (tx, list(groups), list(srcs),
+                                     load.copy())
+        return sc(tx, groups, srcs, load, counters)
+
+    tk.phase2_keys, tk.screen_sources = phase2_keys, screen_sources
+
+    def undo():
+        tk.phase2_keys, tk.screen_sources = p2, sc
+    return undo
+
+
+def _per_call(name, fn, n: int = 10) -> dict:
+    """One program call, replayed `n` times on its recorded inputs after a
+    warm-up: its host wall per call (each replay synchronized) and, from
+    torch.profiler over `n` more replays (device activity only, as phase
+    8 traces), the kernels it launches, the copies it makes and its
+    device time, per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    copies = sum(e.count for e in rows
+                 if e.key.startswith(("Memcpy", "Memset")))
+    out = {"wall_ms": wall_ms,
+           "launches": (sum(e.count for e in rows) - copies) / n
+           if rows else None,
+           "copies": copies / n if rows else None,
+           "device_ms": (sum(e.self_device_time_total for e in rows)
+                         / 1e3 / n if rows else None)}
+    print(f"  one {name} call (mean of {n}): {wall_ms:.3f} ms host wall, "
+          f"{out['launches']} kernel launches, {out['copies']} copies, "
+          f"{out['device_ms']} ms device time")
+    return out
+
+
+def allocator_tier() -> dict:
+    """Phase 9a: AGH at (200,160,80) on numpy and on the torch tier (the
+    card). Returns the phase's numbers."""
+    from repro_torch.core import random_instance
+    from repro_torch.core import tier_kernels as tk
+    from repro_torch.planner import PlanOptions, plan
+
+    inst = random_instance(*TIER_SIZE, seed=TIER_SEED)
+    out = {"size": list(TIER_SIZE), "seed": TIER_SEED,
+           "ref_objective": TIER_REF_OBJECTIVE}
+    t0 = time.perf_counter()
+    res_np = plan("agh", instance=inst, options=PlanOptions(workers=0))
+    out["numpy_wall_s"] = time.perf_counter() - t0
+    out["numpy_objective"] = res_np.objective
+    print(f"  numpy AGH on {TIER_SIZE}: objective {res_np.objective:.4f} "
+          f"(the reference's: {TIER_REF_OBJECTIVE}), "
+          f"{out['numpy_wall_s']:.3f} s, "
+          f"{res_np.diagnostics['orderings_evaluated']} orderings",
+          flush=True)
+    if abs(res_np.objective - TIER_REF_OBJECTIVE) > 1e-4:
+        fail(f"numpy AGH objective {res_np.objective} is not the "
+             f"reference's {TIER_REF_OBJECTIVE}")
+
+    opts = PlanOptions(engine="torch", workers=0)
+    t0 = time.perf_counter()
+    first = plan("agh", instance=inst, options=opts)
+    torch.cuda.synchronize()
+    out["torch_first_wall_s"] = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    undo = _recording_tier(record)
+    try:
+        t0 = time.perf_counter()
+        res = plan("agh", instance=inst, options=opts)
+        torch.cuda.synchronize()
+        out["torch_wall_s"] = time.perf_counter() - t0
+    finally:
+        undo()
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    out["resident_gib"] = held / 2 ** 30
+    d = res.diagnostics
+    if d.get("engine") != "torch":
+        fail(f"plan(engine='torch') ran {d.get('engine')!r}")
+    if not (np.isfinite(res.objective) and res.feasible):
+        fail(f"torch tier plan: objective {res.objective}, feasible "
+             f"{res.feasible}")
+    if res.objective != first.objective:
+        fail(f"two torch tier solves differ: {first.objective} vs "
+             f"{res.objective}")
+    if res.objective > res_np.objective * (1 + TIER_RTOL):
+        fail(f"torch tier objective {res.objective} is above numpy's "
+             f"{res_np.objective}")
+    out["torch_objective"] = res.objective
+    keys = ("restarts", "orderings_evaluated", "early_stopped",
+            "device_calls_phase2", "device_calls_screen", "screen_sources",
+            "screened_clean", "screen_bypassed", "scans", "scan_s",
+            "screen_s", "moves_applied", "rescans")
+    out["stats"] = {k: d.get(k, 0) for k in keys}
+    out["phase2_s"] = record["phase2_s"]
+    # Lanes: the random restarts plus the deterministic orderings (and a
+    # warm lane, when there is one), all in the first lockstep call.
+    out["lanes"] = (len(record["phase2_args"][1])
+                    if record["phase2_args"] is not None else 0)
+    n_req = out["stats"]["screen_sources"] + out["stats"]["screen_bypassed"]
+    out["screen_kept_share"] = (out["stats"]["screen_sources"] / n_req
+                                if n_req else None)
+    out["gate"] = ("on" if not out["stats"]["screen_bypassed"] else
+                   "off after warm-up" if not n_req or
+                   out["stats"]["screen_bypassed"] / n_req > 0.5 else
+                   "partly off")
+    print(f"  torch tier on the card: objective {res.objective:.4f}; "
+          f"first (cold) run {out['torch_first_wall_s']:.3f} s, timed run "
+          f"{out['torch_wall_s']:.3f} s (numpy {out['numpy_wall_s']:.3f} "
+          f"s); {out['lanes']} lanes ({out['stats']['restarts']} random), "
+          f"{out['stats']['orderings_evaluated']} orderings evaluated",
+          flush=True)
+    print(f"  device calls: phase-2 {out['stats']['device_calls_phase2']} "
+          f"({out['phase2_s']:.3f} s), screen "
+          f"{out['stats']['device_calls_screen']} "
+          f"({out['stats']['screen_s']} s) over "
+          f"{out['stats']['screen_sources']} sources; screened clean "
+          f"{out['stats']['screened_clean']}, bypassed by the gate "
+          f"{out['stats']['screen_bypassed']}; host scans "
+          f"{out['stats']['scans']} ({out['stats']['scan_s']} s); gate: "
+          f"{out['gate']}; peak device memory {out['peak_mem_gib']:.3f} "
+          f"GiB above {out['resident_gib']:.3f} GiB held", flush=True)
+    if record["phase2_args"] is not None:
+        tx, items = record["phase2_args"]
+        out["phase2_call"] = _per_call(
+            f"phase-2 ({len(items)} lanes)",
+            lambda: tk.phase2_keys(tx, items))
+    if record["screen_args"] is not None:
+        tx, groups, srcs, load = record["screen_args"]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out["screen_call"] = _per_call(
+            f"screen ({len(srcs)} sources, {len(groups)} groups)",
+            lambda: tk.screen_sources(tx, groups, srcs, load))
+        out["screen_call"]["peak_mem_gib"] = (
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        print(f"  the widest screen call's peak device memory: "
+              f"{out['screen_call']['peak_mem_gib']:.3f} GiB")
+    return out
+
+
+def closed_loop_day(engine: str) -> dict:
+    """Phase 9b: one serve() of the forecast-mode day, every replan on
+    `engine`. Returns the day's numbers."""
+    from repro_torch.core import random_instance
+    from repro_torch.core.queueing import with_queueing_margin
+    from repro_torch.planner import PlanOptions, PlanSession
+    from repro_torch.serving import ControllerSpec, TrafficSpec, serve
+
+    inst = random_instance(*LOOP_SIZE, seed=LOOP_SEED)
+    sess = PlanSession(engine=engine, options=PlanOptions(workers=0))
+    t0 = time.perf_counter()
+    res = sess.plan(instance=with_queueing_margin(inst, LOOP_RHO_MAX))
+    plan_s = time.perf_counter() - t0
+    sr = serve(res, instance=inst, session=sess,
+               traffic=TrafficSpec(**LOOP_TRAFFIC),
+               controller=ControllerSpec(mode="forecast",
+                                         rho_max=LOOP_RHO_MAX,
+                                         **LOOP_FORECAST))
+    wall = time.perf_counter() - t0
+    p99 = float(np.nanmax(sr.per_type_e2e_p99 / inst.Delta))
+    out = {"engine": res.diagnostics.get("engine", engine),
+           "cold_objective": res.objective, "cold_plan_s": plan_s,
+           "replans": [[e.window, e.cause, e.objective, e.wall_s]
+                       for e in sr.replans],
+           "attainment": sr.attainment(), "p99_over_slo": p99,
+           "served": sr.n_served, "shed": sr.n_shed,
+           "planner_wall_s": plan_s + sr.planner_wall_s,
+           "planner_share": (plan_s + sr.planner_wall_s)
+           / LOOP_TRAFFIC["horizon_s"], "wall_s": wall}
+    if not (np.isfinite(res.objective) and sr.n_served > 0
+            and len(sr.per_type_e2e_p99) == inst.I):
+        fail(f"closed loop on {engine}: objective {res.objective}, served "
+             f"{sr.n_served}")
+    print(f"  {engine} session: cold objective {res.objective:.4f} "
+          f"({plan_s:.3f} s); {len(sr.replans)} replans "
+          f"{[(e.window, e.cause) for e in sr.replans]}; attainment "
+          f"{out['attainment']:.6f}, worst-type p99 / SLO {p99:.4f}, "
+          f"served {sr.n_served}, shed {sr.n_shed}; planner wall "
+          f"{out['planner_wall_s']:.3f} s = "
+          f"{100 * out['planner_share']:.4f} % of the horizon; day "
+          f"{wall:.1f} s", flush=True)
+    return out
+
+
+def plan_and_replan() -> dict:
+    """Phase 9: plan on the card, replan in the loop."""
+    out = {"allocator": allocator_tier()}
+    loop = {"numpy": closed_loop_day("numpy")}
+    loop["torch"] = closed_loop_day("torch")
+    np_day, t_day = loop["numpy"], loop["torch"]
+    if abs(np_day["cold_objective"] - LOOP_REF_COLD_OBJECTIVE) > 1e-4:
+        fail(f"numpy cold objective {np_day['cold_objective']} is not the "
+             f"reference's {LOOP_REF_COLD_OBJECTIVE}")
+    if t_day["engine"] != "torch":
+        fail(f"the torch session ran {t_day['engine']!r}")
+    causes = lambda day: [(w, c) for w, c, _, _ in day["replans"]]
+    if causes(t_day) != causes(np_day):
+        fail(f"torch session replans {causes(t_day)} differ from numpy's "
+             f"{causes(np_day)}")
+    for (_, _, o_t, _), (_, _, o_n, _) in zip(t_day["replans"],
+                                              np_day["replans"]):
+        if o_t > o_n * (1 + TIER_RTOL):
+            fail(f"a torch replan's objective {o_t} is above numpy's {o_n}")
+    if (t_day["cold_objective"] > np_day["cold_objective"] * (1 + TIER_RTOL)
+            or t_day["attainment"] < np_day["attainment"] - 1e-9):
+        fail(f"torch session worse than numpy's: {t_day} vs {np_day}")
+    print(f"  replans: {len(np_day['replans'])} on both (the reference's "
+          f"day: {LOOP_REF_REPLANS})")
+    out["closed_loop"] = loop
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1135,6 +1414,14 @@ def main(argv=None) -> int:
     print(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"risk": risk}))
+
+    phase("9. plan on the card, replan in the loop")
+    t0 = time.perf_counter()
+    planning = plan_and_replan()
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f}s")
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"allocator": planning["allocator"]}))
+    print(json.dumps({"closed_loop": planning["closed_loop"]}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

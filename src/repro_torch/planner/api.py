@@ -45,12 +45,16 @@ class PlanOptions:
     | ``patience``   | agh                | early-stop patience            |
     | ``local_search``| agh               | "batched" / "batched-rescan" / |
     |                |                    | "reference"                    |
-    | ``engine``     | agh                | "numpy" (default, the oracle); |
-    |                |                    | "xla" / "torch" (the batched   |
-    |                |                    | tier) raise                    |
-    |                |                    | EngineUnavailableError         |
+    | ``engine``     | agh                | "numpy" (default, the oracle)  |
+    |                |                    | / "torch" (the lane-batched    |
+    |                |                    | tier, core/tier.py; "xla" is   |
+    |                |                    | the reference's name for it)   |
     | ``batch_width``| agh (batched tier) | lanes per device call in the   |
     |                |                    | lockstep batch (None = all)    |
+    | ``device``     | agh (batched tier) | where the tier runs: None =    |
+    |                |                    | "cuda" (raises without CUDA),  |
+    |                |                    | or "cpu"; omitted from         |
+    |                |                    | to_dict() while None           |
     | ``workers``    | agh                | multi-start fan-out width      |
     | ``validate``   | agh                | per-move debug consistency     |
     | ``order``      | gh                 | Phase-2 type ordering override |
@@ -88,11 +92,14 @@ class PlanOptions:
     mip_rel_gap: float = 1e-3
     relax: bool = False
     risk: dict | None = None
+    device: str | None = None
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d["ablation"] = sorted(self.ablation)
         d["order"] = list(self.order) if self.order is not None else None
+        if self.device is None:
+            del d["device"]
         return d
 
     @staticmethod
@@ -205,8 +212,9 @@ def plan(request: PlanRequest | str | None = None, *,
     ``plan("agh", instance=inst, options=PlanOptions(...))``.
     ``engine=`` is convenience-form shorthand for
     ``options=dataclasses.replace(options, engine=...)`` — e.g.
-    ``plan(instance=inst, engine="torch")`` asks for AGH's batched tier,
-    which is not ported yet and raises `EngineUnavailableError`.
+    ``plan(instance=inst, engine="torch")`` runs AGH on the lane-batched
+    torch tier, on CUDA unless ``options.device`` is ``"cpu"`` (it raises
+    without CUDA; ``engine="xla"`` is the same tier).
     """
     if isinstance(request, str) or request is None:
         opts = options or PlanOptions()

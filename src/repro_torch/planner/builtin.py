@@ -14,7 +14,6 @@ from repro_torch.core.agh import agh
 from repro_torch.core.baselines import dvr, hf, lpr
 from repro_torch.core.gh import gh
 from repro_torch.core.milp import solve_milp
-from repro_torch.core.tier import EngineUnavailableError
 
 from .registry import SolverSpec, register_solver
 
@@ -30,25 +29,31 @@ def _solve_gh(inst, options, warm_start):
 def _solve_agh(inst, options, warm_start):
     stats: dict = {}
     # For AGH, `options.order` is a PRIORITY ordering: evaluated before the
-    # standard multi-start list (a warm replan passes the ordering that
+    # standard multi-start list (PlanSession passes the ordering that
     # produced the incumbent).  GH instead treats it as THE ordering.
     priority = ([np.asarray(options.order)]
                 if options.order is not None else None)
     engine = getattr(options, "engine", "numpy") or "numpy"
-    if engine in ("xla", "torch"):
-        # The reference's jitted tier (engine="xla") becomes the port's
-        # engine="torch"; both names fail loudly until it is ported.
-        raise EngineUnavailableError(
-            f"engine={engine!r}: the batched allocator tier is not ported "
-            "yet (ROADMAP item 3); use the default engine='numpy'")
-    if engine != "numpy":
-        raise ValueError(f"unknown engine {engine!r}: expected 'numpy'")
-    sol = agh(inst, R=options.restarts, L=options.passes,
-              seed=options.seed, patience=options.patience,
-              validate=options.validate,
-              local_search=options.local_search,
-              workers=options.workers, warm_start=warm_start,
-              priority_orders=priority, stats=stats)
+    extra = {}
+    if engine in ("torch", "xla"):
+        # Lazy tier load: torch is only imported when the batched tier is
+        # actually requested (`from repro_torch import plan` stays
+        # torch-free).  "xla" is the reference's name for the same tier.
+        from repro_torch.core.tier import load_engine
+        solver = load_engine().agh_torch
+        extra["batch_width"] = options.batch_width
+        extra["device"] = options.device or "cuda"
+    elif engine == "numpy":
+        solver = agh
+    else:
+        raise ValueError(f"unknown engine {engine!r}: "
+                         "expected 'numpy', 'torch' or 'xla'")
+    sol = solver(inst, R=options.restarts, L=options.passes, **extra,
+                 seed=options.seed, patience=options.patience,
+                 validate=options.validate,
+                 local_search=options.local_search,
+                 workers=options.workers, warm_start=warm_start,
+                 priority_orders=priority, stats=stats)
     stats["active_pairs"] = int(np.sum(sol.q > 0.5))
     return sol, stats
 

@@ -674,3 +674,100 @@ def test_risk_solver_on_card_is_deterministic(dev, case):
     b, d_b = _risk_solve(case, "cuda")
     assert np.array_equal(a.costs, b.costs)
     assert d_a == d_b
+
+
+# -- the allocator's lane-batched tier on the card ------------------------
+# Its two programs are eager f64 torch operations, not hand-written
+# kernels; the card's solve must be the CPU's, bit for bit: the same
+# phase-2 keys and screen verdicts on the same padded inputs, the same
+# plan. (The gate that turns the screen off reads the wall clock, so the
+# screen's own counters may differ between devices; the plan may not.)
+
+TIER_SUITE = {
+    "default": lambda m: m.default_instance(),
+    "random-6-6-10": lambda m: m.random_instance(6, 6, 10, seed=1),
+    "random-8-5-6": lambda m: m.random_instance(8, 5, 6, seed=2),
+    "random-10-10-10": lambda m: m.random_instance(10, 10, 10, seed=3),
+    "stressed-1.15": lambda m: m.default_instance().stressed(1.15),
+    "stressed-1.3": lambda m: m.default_instance().stressed(1.3),
+    "tight-budget": lambda m: m.random_instance(6, 6, 10, seed=4,
+                                                budget=40.0),
+}
+
+
+def _copied(obj):
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_copied(o) for o in obj)
+    return obj
+
+
+def _tier_solve(name, device, record=None):
+    """One AGH solve on the tier; with `record`, every program call's
+    inputs and outputs are appended to it."""
+    from repro_torch import core
+    from repro_torch.core import tier_engine, tier_kernels
+
+    inst = TIER_SUITE[name](core)
+    stats = {}
+    if record is None:
+        return inst, tier_engine.agh_torch(inst, seed=0, stats=stats,
+                                           device=device), stats
+    p2, sc = tier_kernels.phase2_keys, tier_kernels.screen_sources
+
+    def rec_p2(tx, items, counters=None):
+        items = _copied(items)
+        out = p2(tx, items, counters)
+        record.append(("phase2", items, _copied(out)))
+        return out
+
+    def rec_sc(tx, groups, srcs, load, counters=None):
+        args = _copied((groups, srcs, load))
+        out = sc(tx, groups, srcs, load, counters)
+        record.append(("screen", args, out.copy()))
+        return out
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tier_kernels, "phase2_keys", rec_p2)
+    mp.setattr(tier_kernels, "screen_sources", rec_sc)
+    try:
+        sol = tier_engine.agh_torch(inst, seed=0, stats=stats, device=device)
+    finally:
+        mp.undo()
+    return inst, sol, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TIER_SUITE))
+def test_tier_on_card_equals_cpu(dev, name):
+    from repro_torch.core import objective
+    from repro_torch.core.tier_kernels import phase2_keys, screen_sources
+    from repro_torch.core.tier_tensors import tensors_for
+
+    calls = []
+    inst, want, st_cpu = _tier_solve(name, "cpu", record=calls)
+    _, got, st_card = _tier_solve(name, "cuda")
+    assert objective(inst, got) == objective(inst, want)
+    for f in ("x", "y", "q", "w", "z", "u"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for key in ("device_calls_phase2", "orderings_evaluated",
+                "winning_order", "rescans"):
+        assert st_card.get(key) == st_cpu.get(key), key
+    tx = tensors_for(inst, dev)
+    assert tx.m1_delay.is_cuda
+    assert any(kind == "screen" for kind, *_ in calls)
+    for kind, args, out in calls:
+        if kind == "phase2":
+            for g, w in zip(phase2_keys(tx, args), out, strict=True):
+                np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_array_equal(screen_sources(tx, *args), out)
+
+
+@pytest.mark.cuda
+def test_tier_on_card_is_deterministic(dev):
+    _, a, _ = _tier_solve("random-10-10-10", "cuda")
+    _, b, _ = _tier_solve("random-10-10-10", "cuda")
+    for f in ("x", "y", "q", "w", "z", "u"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))

@@ -2,9 +2,8 @@
 reference's solutions bit for bit for every builtin solver, the result and
 option types round-trip through JSON, the registry behaves the same, every
 named scenario builds the reference's arrays (the TPU fleet raises: the port
-has no TPU tiers), the batched allocator engines raise
-`EngineUnavailableError`, and the `risk=` post-pass gives the reference's
-counts. Numpy on both sides, apart from the risk hook (torch on the CPU)."""
+has no TPU tiers), both names of the batched allocator engine run the torch
+tier, and the `risk=` post-pass gives the reference's counts. Numpy on both sides, apart from the risk hook (torch on the CPU)."""
 import dataclasses
 
 import numpy as np
@@ -103,10 +102,20 @@ def test_facade_equals_direct_calls():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("engine", ["xla", "torch"])
-def test_batched_allocator_engines_are_unavailable(engine):
+def test_batched_allocator_engines_run_the_torch_tier(engine):
+    """Both names run the lane-batched tier: with device="cpu" here, and
+    with no device (CUDA) it raises where CUDA is absent."""
     inst = core.random_instance(6, 6, 10, seed=1)
-    with pytest.raises(EngineUnavailableError, match="ROADMAP item 3"):
-        plan("agh", instance=inst, engine=engine)
+    res = plan("agh", instance=inst, engine=engine,
+               options=PlanOptions(device="cpu"))
+    assert res.diagnostics["engine"] == "torch"
+    assert res.solution.method == "AGH-TORCH"
+    assert res.options["engine"] == engine
+    direct = core.agh(inst)
+    assert res.objective <= core.objective(inst, direct) + 1e-9
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            plan("agh", instance=inst, engine=engine)
     assert issubclass(EngineUnavailableError, RuntimeError)
     assert core.EngineUnavailableError is EngineUnavailableError
 

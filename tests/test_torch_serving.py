@@ -107,12 +107,40 @@ def _port_modules() -> list[str]:
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("repro_torch.kernels.flash_attention.kernel",
-              "repro_torch.planner.api", "repro_torch.risk.solver"):
+              "repro_torch.planner.api", "repro_torch.risk.solver",
+              "repro_torch.core.tier_tensors", "repro_torch.core.tier_kernels",
+              "repro_torch.core.tier_engine", "repro_torch.core.forecast",
+              "repro_torch.core.queueing", "repro_torch.core.evaluate",
+              "repro_torch.core.rolling", "repro_torch.planner.session",
+              "repro_torch.serving.types", "repro_torch.serving.router",
+              "repro_torch.serving.stations", "repro_torch.serving.simulator",
+              "repro_torch.serving.controller", "repro_torch.serving.driver"):
         assert m in mods, m
     code = ("import importlib, sys; sys.modules['jax'] = None; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules); print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_planner_and_serving_layers_import_without_torch():
+    """`import repro_torch.serving` and the lazy root exports (`plan`,
+    `PlanSession`, `serve`, ...) are numpy-only: torch loads with the
+    engine or the allocator tier, not before."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['torch'] = None; "
+            "import repro_torch.serving, repro_torch.core.tier; "
+            "from repro_torch import (plan, PlanSession, serve, ServeResult, "
+            "TrafficSpec, ControllerSpec, Station); "
+            "from repro_torch.planner import PlanOptions; "
+            "from repro_torch.core import random_instance; "
+            "plan(instance=random_instance(4, 3, 4, seed=0)); "
+            "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          env={"PYTHONPATH": str(REPO / "src"),
