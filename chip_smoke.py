@@ -63,11 +63,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      with a numpy PlanSession and once with PlanSession(engine="torch"),
      whose replans must be the numpy session's and no worse.
 
-Phases 8 and 9 print their numbers as JSON lines {"risk": ...},
-{"allocator": ...} and {"closed_loop": ...}. The line before the last is
-the kernel table as JSON; the last line is {"ok": true, "device":
-{...}}. Without a CUDA device the run fails. To run phase 9 alone on a
-card: python -c "import chip_smoke as cs; cs.plan_and_replan()".
+  10. MoE and io on the card, each model built, run and freed before the
+     next: both attention kernels at the new configs' shapes (hd 128 at
+     G 8, 5 and 6 with the MoE configs' 8192 window, musicgen's hd 64 at
+     G 1) under phase 3's criteria, and the grouped int8 GEMM of the W8A8
+     experts bit for bit at kimi-k2's and llama4-scout's prefill and
+     decode shapes and on strided views, all timed as in phase 6 (the int8
+     GEMM beside a loop of torch._int_mm per expert where its shape rules
+     allow, a yardstick the port never calls); the served batch on four
+     engines (kimi-k2 at 1 layer, kimi-k2 W8A8 at 2, llama4-scout at 8 of
+     48, internvl2-26b whole), every kernel of each path launched, kimi-k2
+     and llama4-scout traced with their launches per layer per decode step;
+     musicgen-medium whole through `decoder.prefill` (a [8, 64, 1536]
+     prefix, [8, 999, 4] codebook tokens) and 32 decode steps; phase 5's
+     logits checks on llama4-scout (2 layers), internvl2-26b (4 layers,
+     256-row prefix) and musicgen-medium (64-row prefix) in f32 and bf16,
+     and kimi-k2 (1 layer) in bf16, where a miss is held to the routes the
+     two paths took (`check_route_flips`).
+
+Phases 8, 9 and 10 print their numbers as JSON lines {"risk": ...},
+{"allocator": ...}, {"closed_loop": ...} and {"moe_io": ...}. The line
+before the last is the kernel table as JSON; the last line is {"ok":
+true, "device": {...}}. Without a CUDA device the run fails. To run phase
+9 or 10 alone on a card: python -c "import chip_smoke as cs;
+cs.plan_and_replan()" (or cs.moe_and_io()).
 """
 from __future__ import annotations
 
@@ -423,11 +442,14 @@ def kernel_ops() -> dict:
     """Each kernel's public op, which counts its launches."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
     from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     return {"flash_attention": flash_attention,
             "decode_attention": decode_attention,
-            "ssm_scan": ssm_scan, "rwkv6_wkv": rwkv6_wkv}
+            "ssm_scan": ssm_scan, "rwkv6_wkv": rwkv6_wkv,
+            "int8_grouped_matmul": int8_grouped_matmul}
 
 
 def serve_counted(engine, reqs, kernels, label, seed):
@@ -460,7 +482,7 @@ def serve_counted(engine, reqs, kernels, label, seed):
     for name in kernels:
         if launches[name] <= 0:
             fail(f"the served {label} batch never launched {name}")
-    return launches
+    return launches, runs
 
 
 def serve_main_path(dev, seed):
@@ -484,9 +506,9 @@ def serve_main_path(dev, seed):
     serve.serve_batch(engine, serve.make_requests([16, 9], 2,
                                                   cfg.vocab_size, seed + 1))
     reqs = serve.make_requests(PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)
-    launches = serve_counted(engine, reqs,
-                             ("flash_attention", "decode_attention"), ARCH,
-                             seed)
+    launches, _ = serve_counted(engine, reqs,
+                                ("flash_attention", "decode_attention"),
+                                ARCH, seed)
     return engine, reqs, launches
 
 
@@ -515,7 +537,7 @@ def serve_recurrent(arch, dev, seed):
     serve.serve_batch(engine, serve.make_requests([16, 9], 2,
                                                   cfg.vocab_size, seed + 1))
     reqs = serve.make_requests(PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)
-    launches = serve_counted(engine, reqs, RECURRENT[arch][0], arch, seed)
+    launches, _ = serve_counted(engine, reqs, RECURRENT[arch][0], arch, seed)
     print(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
           f"allocated so far")
     phase(f"7. device trace of one served {arch} batch")
@@ -559,10 +581,15 @@ def trace_batch(engine, reqs):
                 launches=n)
 
 
-def compare_paths(dev, seed, arch=ARCH, n_layers=None):
+def compare_paths(dev, seed, arch=ARCH, n_layers=None, prefix_rows=0,
+                  with_f32=True):
     """Phase 5: full-width prefill + 4 decode steps, kernels vs plain, in
     f32 and in bf16 on the same bf16-rounded weights; `n_layers` cuts the
-    depth."""
+    depth, `prefix_rows` puts that many prefix embeddings before the
+    tokens (codebook configs get [B, T, nq] tokens). Without `with_f32`
+    (a model whose f32 weights do not fit) only the bf16 bound is held.
+    On an MoE model a failed bf16 bound is explained or not by the routes
+    the two paths took (`check_route_flips`)."""
     import gc
 
     from repro_torch.configs import get_config
@@ -574,52 +601,140 @@ def compare_paths(dev, seed, arch=ARCH, n_layers=None):
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
     params16 = decoder.init_params(
         torch.Generator(device=dev).manual_seed(seed), cfg16)
-    params32 = _tree_map(lambda x: x.float(), params16)
     B, T, n_dec = 2, max(PROMPT_LENS), 4
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
-    toks = torch.randint(1, cfg16.vocab_size, (B, T + n_dec), generator=gen,
-                         device=dev)
-    name = f"{cfg16.name} ({cfg16.n_layers} layers)"
+    nq = (cfg16.n_codebooks,) if cfg16.n_codebooks else ()
+    toks = torch.randint(1, cfg16.vocab_size, (B, T + n_dec, *nq),
+                         generator=gen, device=dev)
+    prefix = (torch.randn((B, prefix_rows, cfg16.d_model), generator=gen,
+                          device=dev) if prefix_rows else None)
+    name = (f"{cfg16.name} ({cfg16.n_layers} layer"
+            + ("s" if cfg16.n_layers > 1 else "")
+            + (f", {prefix_rows}-row prefix" if prefix_rows else "")
+            + (f", {nq[0]} codebooks" if nq else "") + ")")
 
-    def run(params, cfg, use_kernels):
-        with torch.inference_mode():
-            lg, cache = decoder.prefill(params, cfg, toks[:, :T],
-                                        max_len=T + n_dec,
-                                        use_kernels=use_kernels)
-            out = [lg]
-            for t in range(T, T + n_dec):
-                lg, cache = decoder.decode_step(params, cfg, cache,
-                                                toks[:, t:t + 1], t,
-                                                use_kernels=use_kernels)
-                out.append(lg)
+    def run(params, cfg, use_kernels, routes=None, cfg_decode=None):
+        undo = _recording_routes(routes) if routes is not None else None
+        try:
+            with torch.inference_mode():
+                lg, cache = decoder.prefill(params, cfg, toks[:, :T], prefix,
+                                            max_len=prefix_rows + T + n_dec,
+                                            use_kernels=use_kernels)
+                out = [lg]
+                for t in range(T, T + n_dec):
+                    lg, cache = decoder.decode_step(
+                        params, cfg_decode or cfg, cache, toks[:, t:t + 1],
+                        prefix_rows + t, use_kernels=use_kernels)
+                    out.append(lg)
+        finally:
+            if undo:
+                undo()
         got = torch.cat(out, dim=1)
         if not torch.isfinite(got).all():
             fail(f"non-finite {cfg.dtype} logits of {name} "
                  f"(kernels={use_kernels})")
         return got.float()
 
-    got, want = run(params32, cfg32, True), run(params32, cfg32, False)
-    print(f"  {name} logits scale: max |plain| = "
-          f"{want.abs().max().item():.3f}")
-    check_close(f"f32 {name} prefill T={T} + {n_dec} decode steps, "
-                f"kernels vs plain", got, want, E2E_TOL)
-    got16, want16 = run(params16, cfg16, True), run(params16, cfg16, False)
+    want = None
+    if with_f32:
+        params32 = _tree_map(lambda x: x.float(), params16)
+        got, want = run(params32, cfg32, True), run(params32, cfg32, False)
+        del params32
+        print(f"  {name} logits scale: max |plain| = "
+              f"{want.abs().max().item():.3f}")
+        check_close(f"f32 {name} prefill T={T} + {n_dec} decode steps, "
+                    f"kernels vs plain", got, want, E2E_TOL)
+    routes_k, routes_p = [], []
+    got16 = run(params16, cfg16, True, routes_k)
+    want16 = run(params16, cfg16, False, routes_p)
     rel = row_rel(got16, want16)
-    rel_k, rel_p = row_rel(got16, want), row_rel(want16, want)
-    ok = rel <= E2E_BF16_REL and rel_k <= 2 * rel_p + E2E_TOL
     same = (got16.argmax(-1) == want16.argmax(-1)).float().mean().item()
+    if want is not None:
+        rel_k, rel_p = row_rel(got16, want), row_rel(want16, want)
+        ok = rel <= E2E_BF16_REL and rel_k <= 2 * rel_p + E2E_TOL
+        vs_f32 = (f"; vs the f32 logits: kernels {rel_k:.3e}, plain "
+                  f"{rel_p:.3e} (tol 2x plain + {E2E_TOL:g})")
+    else:
+        ok, vs_f32 = rel <= E2E_BF16_REL, " (no f32 run: its weights do " \
+                                          "not fit)"
     print(f"  bf16 {name} prefill T={T} + {n_dec} decode steps: "
           f"max_row_rel_err kernels vs plain {rel:.3e} (tol "
-          f"{E2E_BF16_REL:g}); vs the f32 logits: kernels {rel_k:.3e}, "
-          f"plain {rel_p:.3e} (tol 2x plain + {E2E_TOL:g}); same greedy "
-          f"token in {same:.3f} of rows {'ok' if ok else 'MISMATCH'}",
-          flush=True)
-    if not ok:
+          f"{E2E_BF16_REL:g}){vs_f32}; same greedy token in {same:.3f} of "
+          f"rows {'ok' if ok else 'MISMATCH'}", flush=True)
+    flips = None
+    if not ok and cfg16.n_experts:
+        flips = check_route_flips(run, params16, cfg16, name, routes_k,
+                                  routes_p, B, T)
+    elif not ok:
         fail(f"bf16 logits of {name}'s kernel path disagree with the "
              f"plain path")
-    del params16, params32
+    del params16
     gc.collect()
     torch.cuda.empty_cache()
+    return {"model": name, "bf16_max_row_rel_err": rel,
+            "f32_checked": want is not None, "route_flips": flips}
+
+
+def _recording_routes(record: list):
+    """Keep every expert index tensor the MoE router returns, in call
+    order, until the returned function is called."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recording(p, cfg, xf):
+        gate, idx = route(p, cfg, xf)
+        record.append(idx.sort(dim=-1).values)
+        return gate, idx
+
+    moe.route = recording
+    return lambda: setattr(moe, "route", route)
+
+
+def check_route_flips(run, params, cfg, name, routes_k, routes_p, B, T):
+    """A failed bf16 bound on an MoE model: the two paths' attention
+    differs by bf16 rounding, which can move a token across a tie in its
+    router and send it to another expert, far from the other path's row
+    with no fault in any kernel. Shows the routes that differ, then runs
+    both paths again with a capacity that drops nothing (C = N: a token
+    sends at most one copy to an expert), so that one flip cannot cascade
+    into drops, and holds the logit rows whose own routes agree in every
+    layer to the bound. Fails when no route differs, or when an agreeing
+    row misses the bound."""
+    L = cfg.n_layers
+    differ = [int((a != b).any(-1).sum()) for a, b in zip(routes_k, routes_p)]
+    print(f"  {name}: tokens routed differently by the two paths, per MoE "
+          f"call (prefill's {L} layers, then {L} per decode step): "
+          f"{differ}", flush=True)
+    if not any(differ):
+        fail(f"bf16 logits of {name}'s kernel path disagree with the plain "
+             f"path, and no route differs")
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+    routes_k, routes_p = [], []
+    got = run(params, no_drop, True, routes_k)
+    want = run(params, no_drop, False, routes_p)
+    n_steps = got.shape[1]
+    agree = torch.ones(B, n_steps, dtype=torch.bool, device=got.device)
+    for call, (a, b) in enumerate(zip(routes_k, routes_p)):
+        same = (a == b).all(-1)
+        step = call // L
+        if step == 0:          # prefill: the row of each sequence's last token
+            same = same.view(B, T)[:, -1]
+        agree[:, step] &= same
+    rows = int(agree.sum())
+    if rows == 0:
+        fail(f"{name}: no logit row has the same routes on both paths")
+    rel = row_rel(got[agree], want[agree])
+    print(f"  {name}, capacity factor {no_drop.capacity_factor:g} (no "
+          f"drops): {rows} of {agree.numel()} logit rows route alike on "
+          f"both paths; their max_row_rel_err kernels vs plain {rel:.3e} "
+          f"(tol {E2E_BF16_REL:g}) {'ok' if rel <= E2E_BF16_REL else 'MISMATCH'}",
+          flush=True)
+    if rel > E2E_BF16_REL:
+        fail(f"bf16 logits of {name} disagree on rows whose routes agree")
+    return {"tokens_routed_differently": differ, "rows_agreeing": rows,
+            "rows": agree.numel(), "agreeing_max_row_rel_err": rel}
 
 
 def _tree_map(fn, tree):
@@ -1345,6 +1460,425 @@ def plan_and_replan() -> dict:
     out["closed_loop"] = loop
     return out
 
+# Phase 10: the MoE and io configs at full width. The served engines:
+# (label, arch, config fields replaced, kernels the path must launch, traced
+# in phase 7). Every width, expert and top-k is the published one; only
+# depth is cut, to fit one 80 GB card in bf16 (PERF.md §4).
+MOE_IO_ENGINES = (
+    ("kimi-k2 (1 layer)", "kimi-k2-1t-a32b", dict(n_layers=1),
+     ("flash_attention", "decode_attention"), True),
+    ("kimi-k2 W8A8 (2 layers)", "kimi-k2-1t-a32b",
+     dict(n_layers=2, moe_w8a8=True),
+     ("flash_attention", "decode_attention", "int8_grouped_matmul"), False),
+    ("llama4-scout (8 of 48 layers)", "llama4-scout-17b-a16e",
+     dict(n_layers=8), ("flash_attention", "decode_attention"), True),
+    ("internvl2-26b", "internvl2-26b", {},
+     ("flash_attention", "decode_attention"), False),
+)
+MUSICGEN = "musicgen-medium"
+# Phase 5 for them: (arch, layers, prefix rows, f32 check too). kimi-k2's f32
+# weights alone take 77 GB, so it is held in bf16 only.
+MOE_IO_LOGITS = (("llama4-scout-17b-a16e", 2, 0, True),
+                 ("internvl2-26b", 4, 256, True),
+                 (MUSICGEN, None, 64, True),
+                 ("kimi-k2-1t-a32b", 1, 0, False))
+# Attention at the new configs' served shapes: (label, arch, tokens before
+# the prompt). hd 128 at G 8, 5, 6 (window 8192 on the MoE configs), and
+# musicgen's hd 64 at G 1 after its 64-row prefix.
+MOE_IO_ATTENTION = (("kimi-k2", "kimi-k2-1t-a32b", 0),
+                    ("llama4-scout", "llama4-scout-17b-a16e", 0),
+                    ("internvl2-26b", "internvl2-26b", 0),
+                    ("musicgen-medium", MUSICGEN, 64))
+PEAK_INT8_OPS = 1979e12     # H100 SXM data sheet, dense int8 tensor cores
+
+
+def _int8_shapes():
+    """The grouped int8 GEMM at the served W8A8 shapes: kimi-k2's three
+    products (w1 and w3 share a shape) and llama4-scout's w1, at the
+    prefill's capacity (8 prompts padded to 999 tokens) and a decode
+    step's (1 slot per expert). (label, E, C, K, N)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+
+    out = []
+    N_pre, N_dec = len(PROMPT_LENS) * max(PROMPT_LENS), len(PROMPT_LENS)
+    for arch, prods in (("kimi-k2-1t-a32b", ("w1", "w2")),
+                        ("llama4-scout-17b-a16e", ("w1",))):
+        cfg = get_config(arch)
+        for step, n in (("prefill", N_pre), ("decode", N_dec)):
+            for w in prods:
+                K, N = ((cfg.d_model, cfg.d_ff) if w == "w1"
+                        else (cfg.d_ff, cfg.d_model))
+                out.append((f"{arch} {step} {w}", cfg.n_experts,
+                            capacity(cfg, n), K, N))
+    return out
+
+
+def check_and_time_int8(dev, seed):
+    """Phase 3 and 6 for the grouped int8 GEMM: bit for bit against its
+    plain version (f64 products, exact) at the served shapes and on
+    strided views; then its time beside its bound (bytes of a, b and the
+    int32 output at 3.35 TB/s against 2 E C K N operations at 1,979 TOP/s
+    int8), the plain version's and, where torch._int_mm's shape rules
+    allow (more than 16 rows), a loop of one _int_mm per expert (a
+    yardstick the port never calls; not one PyTorch call, so it stays out
+    of `library_ms`)."""
+    from repro_torch.kernels.int8_grouped_matmul import kernel as gk
+    from repro_torch.kernels.int8_grouped_matmul.ref import \
+        int8_grouped_matmul_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+
+    def rand(shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    # Strided views: a window of a wider buffer with the expert axis not
+    # outermost, b's columns cut from a wider matrix.
+    a = rand((217, 16, 5120 + 64))[5:5 + 208, :, 32:32 + 5120].transpose(0, 1)
+    b = rand((16, 5120, 2048 + 128))[:, :, 64:64 + 2048]
+    same = torch.equal(gk.int8_grouped_matmul(a, b),
+                       int8_grouped_matmul_ref(a, b))
+    print(f"  int8_grouped_matmul on strided views a {tuple(a.shape)} "
+          f"strides {a.stride()}, b {tuple(b.shape)} strides {b.stride()}: "
+          f"{'bit for bit' if same else 'MISMATCH'}", flush=True)
+    if not same:
+        fail("int8_grouped_matmul disagrees with its plain version on "
+             "strided views")
+    del a, b
+    timed = {}
+    for label, E, C, K, N in _int8_shapes():
+        a, b = rand((E, C, K)), rand((E, K, N))
+        got = gk.int8_grouped_matmul(a, b)
+        want = int8_grouped_matmul_ref(a, b)
+        err = (got.long() - want.long()).abs().max().item()
+        print(f"  int8_grouped_matmul {label} [{E},{C},{K}] x [{E},{K},{N}]"
+              f": max_abs_err {err} {'ok' if err == 0 else 'MISMATCH'}",
+              flush=True)
+        if err != 0 or got.dtype != torch.int32:
+            fail(f"int8_grouped_matmul disagrees with its plain version at "
+                 f"{label}")
+        del got, want
+        ms, eager = time_ms([lambda: gk.int8_grouped_matmul(a, b)], n=20)
+        plain_ms = _event_ms(lambda: int8_grouped_matmul_ref(a, b), 2)
+        loop_ms = (_event_ms(lambda: [torch._int_mm(a[e], b[e])
+                                      for e in range(E)], 3)
+                   if C > 16 else None)
+        bnd, by = bound(a.numel() + b.numel() + 4 * E * C * N,
+                        2.0 * E * C * K * N, PEAK_INT8_OPS)
+        timed[label] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
+                            max_abs_err=err,
+                            bound_ms=bnd, bound_by=by, int_mm_loop_ms=loop_ms,
+                            shape=f"[{E},{C},{K}] x [{E},{K},{N}]")
+        print(f"    {ms:.4f} ms (eager {eager:.4f}), bound {bnd:.4f} ms "
+              f"({by}), plain {plain_ms:.1f} ms, _int_mm loop "
+              + ("n/a (C <= 16)" if loop_ms is None else f"{loop_ms:.3f} ms"),
+              flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+    return timed
+
+
+def _event_ms(fn, n: int) -> float:
+    """Mean device-clock ms of n eager calls of fn after one warm-up."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def check_and_time_attention_moe_io(dev, seed):
+    """Phase 3 and 6 for both attention kernels at the new configs' served
+    shapes (B 8, T 999 after the prefix; decode at S = T + 32): f32 and
+    bf16 under phase 3's criteria, decode over the window's slot map
+    (empty slots past pos) and over a ring map with empty slots; then the
+    bf16 times beside the plain versions, SDPA and the bound. Returns
+    ({label: {"flash": ..., "decode": ...}}, worst bf16 errors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.layers import EMPTY_SLOT, decode_key_positions
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    out, worst = {}, {"flash_attention": (0.0, 0.0),
+                      "decode_attention": (0.0, 0.0)}
+    for label, arch, P in MOE_IO_ATTENTION:
+        cfg = get_config(arch)
+        B, H, KV, hd = len(PROMPT_LENS), cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        W, T = cfg.sliding_window, P + max(PROMPT_LENS)
+        S = T + NEW_TOKENS
+        G = H // KV
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            q, k, v = (model_layout(gen, B, T, h, hd, dtype, dev)
+                       for h in (H, KV, KV))
+            pos = torch.arange(T, dtype=torch.int32, device=dev)
+            e_f = check_kernel(
+                f"flash_attention {tag} {label} B={B} H={H} KV={KV} T={T} "
+                f"hd={hd} window={W}", fk.flash_attention(q, k, v, pos, pos, W),
+                attention_ref(*f32(q, k, v), pos, pos, W))
+            qd = torch.randn((B, KV, G, hd), generator=gen,
+                             device=dev).to(dtype)
+            kc, vc = (model_layout(gen, B, S, KV, hd, dtype, dev)
+                      for _ in range(2))
+            p = T + NEW_TOKENS // 2
+            k_pos = decode_key_positions(S, p, W, dev)
+            e_d = check_kernel(
+                f"decode_attention {tag} {label} B={B} KV={KV} G={G} S={S} "
+                f"hd={hd} pos={p}", dk.decode_attention(qd, kc, vc, k_pos, p),
+                decode_attention_ref(*f32(qd, kc, vc), k_pos, p))
+            slots = torch.arange(S, device=dev)
+            ring = 2500 - ((2500 - slots) % S)
+            ring[::9] = EMPTY_SLOT
+            ring = ring.to(torch.int32)
+            check_kernel(f"decode_attention {tag} {label} ring+empty slots",
+                         dk.decode_attention(qd, kc, vc, ring, 2500),
+                         decode_attention_ref(*f32(qd, kc, vc), ring, 2500))
+            if dtype == torch.bfloat16:
+                for n, e in (("flash_attention", e_f),
+                             ("decode_attention", e_d)):
+                    worst[n] = tuple(max(x, y) for x, y in zip(worst[n], e))
+                out[label] = {
+                    "flash": dict(_time_flash(q, k, v, pos, W, 2),
+                                  max_abs_err=e_f[0], max_row_rel_err=e_f[1]),
+                    "decode": dict(_time_decode(qd, kc, vc, k_pos, p, 8),
+                                   max_abs_err=e_d[0],
+                                   max_row_rel_err=e_d[1])}
+                for n, t in out[label].items():
+                    lib = ("none" if t["library_ms"] is None
+                           else f"{t['library_ms']:.4f} ms")
+                    print(f"    {n} [{t['shape']}]: {t['ms']:.4f} ms (eager "
+                          f"{t['eager_ms']:.4f}), plain {t['plain_ms']:.4f} "
+                          f"ms, SDPA {lib}, bound {t['bound_ms']:.4f} ms "
+                          f"({t['bound_by']})", flush=True)
+        del q, k, v, qd, kc, vc
+        torch.cuda.empty_cache()
+    return out, worst
+
+
+def moe_launches_per_step(engine) -> dict:
+    """Launches of one decode step of the served batch's size and of one
+    MoE layer's `moe_apply` at decode, each from torch.profiler over 10
+    replays (phase 9's `_per_call`)."""
+    from repro_torch.models import decoder
+    from repro_torch.models.decoder import _layer
+    from repro_torch.models.moe import moe_apply
+
+    cfg, params = engine.cfg, engine.params
+    B = len(PROMPT_LENS)
+    toks = torch.ones((B, 16), dtype=torch.long, device=engine.device)
+    h = torch.randn((B, 1, cfg.d_model), device=engine.device).to(
+        cfg.torch_dtype)
+    lp = _layer(params["layers"]["moe"], 0)
+    with torch.inference_mode():
+        _, cache = decoder.prefill(params, cfg, toks, max_len=20)
+        # The same step again and again: it rewrites its own cache slot.
+        step = _per_call(f"decode step (B={B}, {cfg.n_layers} layers)",
+                         lambda: decoder.decode_step(params, cfg, cache,
+                                                     toks[:, :1], 16))
+        moe = _per_call("MoE layer's moe_apply at decode",
+                        lambda: moe_apply(lp, cfg, h))
+    per_layer = (None if step["launches"] is None
+                 else step["launches"] / cfg.n_layers)
+    print(f"  {per_layer} kernel launches per layer per decode step",
+          flush=True)
+    return {"decode_step": step, "per_layer_per_step": per_layer,
+            "moe_apply_decode": moe}
+
+
+def serve_moe_io(dev, seed, label, arch, replace, kernels, traced):
+    """Phase 4 (and 7) for one engine of MOE_IO_ENGINES: built at full
+    width with random weights from `seed`, served, traced when asked, and
+    freed before the next. Returns its numbers."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config(arch), **replace)
+    T = max(PROMPT_LENS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = serve.build_engine(cfg, dev, seed, max_len=T + NEW_TOKENS,
+                                max_batch=len(PROMPT_LENS))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in _leaves(engine.params))
+    alloc = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"  {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts or 'no'} experts (top {cfg.top_k}), "
+          f"{n_par / 1e9:.2f} B parameters drawn in {init_s:.1f}s; "
+          f"{alloc:.1f} GiB allocated", flush=True)
+    serve.serve_batch(engine, serve.make_requests([16, 9], 2,
+                                                  cfg.vocab_size, seed + 1))
+    reqs = serve.make_requests(PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)
+    launches, runs = serve_counted(engine, reqs, kernels, label, seed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {label}: peak {peak:.1f} GiB allocated", flush=True)
+    out = {"config": cfg.name, "layers": cfg.n_layers,
+           "params_b": n_par / 1e9, "gib_allocated": alloc, "peak_gib": peak,
+           "init_s": init_s, "ttft_ms": [r["ttft_s"] * 1e3 for r in runs],
+           "tok_per_s": [r["tok_per_s"] for r in runs],
+           "launches": {n: c for n, c in launches.items() if c}}
+    if traced:
+        phase(f"7. device trace of one served {label} batch")
+        out["trace"] = trace_batch(engine, reqs)
+        out["launch_counts"] = moe_launches_per_step(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_musicgen(dev, seed) -> dict:
+    """Phase 4 for musicgen-medium, whole: the engine serves 1-D prompts
+    only, so the decoder runs directly, as the reference's tests run it:
+    prefill of a [8, 64, 1536] prefix and [8, 999, 4] codebook tokens,
+    then 32 greedy decode steps (argmax per codebook), with the attention
+    kernels' launch counts set to 0 just before and read just after."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+
+    cfg = get_config(MUSICGEN)
+    B, T, P, nq = (len(PROMPT_LENS), max(PROMPT_LENS), cfg.n_prefix_embeds,
+                   cfg.n_codebooks)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = decoder.init_params(gen, cfg)
+    n_par = sum(t.numel() for t in _leaves(params))
+    toks = torch.randint(0, cfg.vocab_size, (B, T, nq), generator=gen,
+                         device=dev)
+    prefix = torch.randn((B, P, cfg.d_model), generator=gen, device=dev)
+
+    def generate(toks, prefix, steps):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            Tp = prefix.shape[1] + toks.shape[1]
+            lg, cache = decoder.prefill(params, cfg, toks, prefix,
+                                        max_len=Tp + steps)
+            step = lg[:, -1].argmax(-1)                     # [B, nq]
+            out = [step]
+            step.tolist()                                   # first tokens
+            ttft = time.perf_counter() - t0
+            for pos in range(Tp, Tp + steps):
+                lg, cache = decoder.decode_step(params, cfg, cache,
+                                                step[:, None], pos)
+                step = lg[:, -1].argmax(-1)
+                out.append(step)
+            got = torch.stack(out, dim=1)                   # [B, steps+1, nq]
+            got_host = got.tolist()
+        return lg, got, got_host, ttft, time.perf_counter() - t0
+
+    generate(toks[:, :16], prefix, 2)                       # warm-up
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    lg, got, _, ttft, wall = generate(toks, prefix, NEW_TOKENS)
+    launches = {name: op.launches for name, op in ops.items()}
+    n_tok = got.numel()
+    print(f"  {cfg.name} whole ({cfg.n_layers} layers, {n_par / 1e9:.2f} B "
+          f"parameters): prefix [{B}, {P}, {cfg.d_model}] + tokens [{B}, {T},"
+          f" {nq}], {NEW_TOKENS} decode steps: TTFT {ttft * 1e3:.2f} ms, "
+          f"{n_tok / wall:.1f} codebook tokens/s ({wall:.3f} s); kernel "
+          f"launches {launches}", flush=True)
+    if (tuple(lg.shape) != (B, 1, nq, cfg.vocab_size)
+            or not torch.isfinite(lg).all()
+            or not ((got >= 0) & (got < cfg.vocab_size)).all()):
+        fail(f"{cfg.name}: logits {tuple(lg.shape)} or tokens out of range")
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] <= 0:
+            fail(f"{cfg.name}'s run never launched {name}")
+    out = {"config": cfg.name, "params_b": n_par / 1e9, "ttft_ms": ttft * 1e3,
+           "tok_per_s": n_tok / wall, "wall_s": wall,
+           "launches": {n: c for n, c in launches.items() if c}}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+INT8_SOURCE = "src/repro/models/moe.py:64"
+
+
+def moe_and_io(dev=None, seed: int = 0) -> dict:
+    """Phase 10: the MoE and io configs on the card. To run it alone:
+    python -c "import chip_smoke as cs; cs.moe_and_io()". Returns the
+    phase's numbers: "int8" (the kernel's times by shape), "attention"
+    (by config), "engines", "musicgen", "logits" and "launches" by path."""
+    if dev is None:
+        if not torch.cuda.is_available():
+            fail("no CUDA device")
+        dev = torch.device("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {}
+    phase("10. MoE and io: kernels vs plain versions (phase 3) and their "
+          "times (phase 6) at the new shapes")
+    out["attention"], out["attention_worst"] = \
+        check_and_time_attention_moe_io(dev, seed)
+    out["int8"] = check_and_time_int8(dev, seed)
+    out["engines"] = {}
+    for label, arch, replace, kernels, traced in MOE_IO_ENGINES:
+        phase(f"10. serve {label} (phase 4)")
+        out["engines"][label] = serve_moe_io(dev, seed, label, arch, replace,
+                                             kernels, traced)
+    phase(f"10. {MUSICGEN} with its prefix and codebooks (phase 4)")
+    out["musicgen"] = run_musicgen(dev, seed)
+    phase("10. full-width logits, kernels vs plain (phase 5)")
+    out["logits"] = [compare_paths(dev, seed, arch, n_layers, prefix_rows,
+                                   with_f32)
+                     for arch, n_layers, prefix_rows, with_f32
+                     in MOE_IO_LOGITS]
+    out["launches"] = {label: e["launches"]
+                       for label, e in out["engines"].items()}
+    out["launches"][MUSICGEN] = out["musicgen"]["launches"]
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 10 took {out['wall_s']:.1f}s", flush=True)
+    return out
+
+
+def merge_moe_io_rows(rows, moe_io):
+    """Phase 10's numbers in the kernel table: the attention rows gain the
+    new paths' launches and their times at the new shapes ("moe_io"); the
+    grouped int8 GEMM gets its own row, timed at kimi-k2's decode-step w1
+    shape (the most launched), its other shapes under "shapes"."""
+    for r in rows:
+        by_path = {p: n[r["name"]] for p, n in moe_io["launches"].items()
+                   if n.get(r["name"])}
+        r["launches_by_path"].update(by_path)
+        r["launches"] = sum(r["launches_by_path"].values())
+        if "attention" in r["name"]:
+            key = "flash" if r["name"].startswith("flash") else "decode"
+            r["moe_io"] = {label: t[key]
+                           for label, t in moe_io["attention"].items()}
+    by_path = {p: n["int8_grouped_matmul"]
+               for p, n in moe_io["launches"].items()
+               if n.get("int8_grouped_matmul")}
+    timed = moe_io["int8"]
+    head = timed["kimi-k2-1t-a32b decode w1"]
+    rows.append(dict(
+        name="int8_grouped_matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/int8_grouped_matmul.cu",
+        replaces=INT8_SOURCE,
+        replaces_note="an XLA einsum of the W8A8 experts, not a Pallas "
+                      "kernel: the port's own kernel",
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        library_ms=None,
+        **{k: v for k, v in head.items()
+           if k not in ("int_mm_loop_ms", "max_abs_err")},
+        max_abs_err=max(t["max_abs_err"] for t in timed.values()),
+        shapes=timed))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1422,6 +1956,12 @@ def main(argv=None) -> int:
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"allocator": planning["allocator"]}))
     print(json.dumps({"closed_loop": planning["closed_loop"]}))
+
+    moe_io = moe_and_io(dev, args.seed)
+    rows = merge_moe_io_rows(rows, moe_io)
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"moe_io": {k: v for k, v in moe_io.items()
+                                 if k not in ("int8", "attention")}}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

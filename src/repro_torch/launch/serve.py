@@ -5,8 +5,10 @@ pairs, and serve a batch of requests on one engine.
         [--requests 8] [--prompt-len 32] [--new-tokens 16] [--seed 0]
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-`--arch` takes the attention configs (qwen2-*, deepseek-7b), rwkv6-7b and
-zamba2-7b.
+`--arch` takes the attention configs (qwen2-*, deepseek-7b), the MoE
+configs (kimi-k2-1t-a32b, llama4-scout-17b-a16e), internvl2-26b (text-only
+prompts), rwkv6-7b and zamba2-7b. musicgen-medium's codebook tokens are
+refused, as the engine refuses them (`serving.engine.check_servable`).
 
 It runs on CUDA unless `--device cpu` is given, and raises when CUDA is
 absent. `--smoke` serves the reduced config, sized for the CPU. Weights
@@ -29,7 +31,7 @@ from ..core.solution import Solution
 from ..device import resolve_device
 from ..models import decoder
 from ..models.config import ModelConfig
-from ..serving.engine import Engine, Request
+from ..serving.engine import Engine, Request, check_servable
 
 
 def plan_fleet(seed: int = 0) -> tuple[Instance, Solution, DeploymentSpec]:
@@ -42,7 +44,10 @@ def plan_fleet(seed: int = 0) -> tuple[Instance, Solution, DeploymentSpec]:
 
 def build_engine(cfg: ModelConfig, device: torch.device, seed: int,
                  max_len: int, max_batch: int) -> Engine:
-    """An engine with random weights drawn from `seed` on `device`."""
+    """An engine with random weights drawn from `seed` on `device`; raises
+    NotImplementedError before drawing them for a config the engine cannot
+    serve."""
+    check_servable(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = decoder.init_params(gen, cfg)
     return Engine(cfg, params, max_len=max_len, max_batch=max_batch)

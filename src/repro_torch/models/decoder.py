@@ -1,6 +1,9 @@
 """Composable decoder on torch tensors: dense GQA attention, RWKV6, Mamba2
-and the Mamba2 + shared-attention hybrid (zamba2), with one vocabulary and
-no prefix embeddings or MoE.
+and the Mamba2 + shared-attention hybrid (zamba2) token mixers; a dense
+SwiGLU or a Mixture-of-Experts channel mixer (`moe.py`); one vocabulary or
+several codebooks (musicgen: embeddings summed over the codebooks, one head
+each), and prefix embeddings (a vlm or audio frontend's, projected and put
+before the tokens).
 
 Parameters are a dict with the reference's tree and layout: weights are
 `x @ W` with W [d_in, d_out], and every per-layer tensor is stacked on
@@ -13,8 +16,8 @@ cache, recurrent states) is updated in place.
 Public entry points:
     init_params(gen, cfg)
     init_cache(cfg, B, max_len, device)
-    prefill(params, cfg, tokens, max_len)          # -> (last_logits, cache)
-    decode_step(params, cfg, cache, tokens, pos)   # -> (logits, cache)
+    prefill(params, cfg, tokens[, prefix], max_len)  # -> (last_logits, cache)
+    decode_step(params, cfg, cache, tokens, pos)     # -> (logits, cache)
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from .config import ModelConfig
 from .layers import (attention_apply, decode_key_positions, mlp_apply,
                      rms_norm)
 from .mamba2 import mamba2_apply, mamba2_cache_init, mamba2_params
+from .moe import moe_apply, moe_params
 from .rwkv6 import rwkv6_apply, rwkv6_cache_init, rwkv6_params
 
 TOKEN_MIXERS = ("attention", "mamba2", "rwkv6")
@@ -35,10 +39,7 @@ def check_supported(cfg: ModelConfig) -> None:
         (f"token mixer {cfg.token_mixer!r}",
          cfg.token_mixer not in TOKEN_MIXERS),
         ("shared attention over a non-mamba2 stack",
-         bool(cfg.attn_every) and cfg.token_mixer != "mamba2"),
-        ("MoE", bool(cfg.n_experts)),
-        ("multi-codebook io", bool(cfg.n_codebooks)),
-        ("prefix embeddings", bool(cfg.n_prefix_embeds))) if used]
+         bool(cfg.attn_every) and cfg.token_mixer != "mamba2")) if used]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port does not run {', '.join(missing)} yet")
@@ -77,9 +78,12 @@ def _layer_params(normal, full, cfg: ModelConfig, n: int) -> dict:
         p["mamba"] = mamba2_params(normal, full, cfg, n)
     else:
         p["rwkv"] = rwkv6_params(normal, full, cfg, n)
-    p["mlp"] = dict(w1=normal((n, d, cfg.d_ff), d),
-                    w3=normal((n, d, cfg.d_ff), d),
-                    w2=normal((n, cfg.d_ff, d), cfg.d_ff))
+    if cfg.n_experts:
+        p["moe"] = moe_params(normal, full, cfg, n)
+    else:
+        p["mlp"] = dict(w1=normal((n, d, cfg.d_ff), d),
+                        w3=normal((n, d, cfg.d_ff), d),
+                        w2=normal((n, cfg.d_ff, d), cfg.d_ff))
     return p
 
 
@@ -88,13 +92,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     in f32, cast to the config's dtype; norms are f32 ones, the QKV biases
     zeros and the recurrent mixers' constants the reference's (whose
     numbers differ: another generator). A stacked weight is drawn one
-    layer at a time, so no full-depth f32 copy is ever held."""
+    matrix at a time (one layer's, or one layer's expert's), so no f32
+    copy of a whole stack is ever held."""
     check_supported(cfg)
     dev, dt = gen.device, cfg.torch_dtype
 
     def normal(shape, fan_in):
         out = torch.empty(shape, dtype=dt, device=dev)
-        for part in (out if len(shape) == 3 else (out,)):
+        for part in (out.view(-1, *shape[-2:]) if len(shape) > 2 else (out,)):
             w = torch.randn(part.shape, generator=gen, device=dev,
                             dtype=torch.float32)
             part.copy_(w * fan_in ** -0.5)
@@ -103,9 +108,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     def full(value, shape):
         return torch.full(shape, value, dtype=torch.float32, device=dev)
 
-    d = cfg.d_model
-    params = dict(embed=normal((cfg.vocab_size, d), d),
-                  head=normal((d, cfg.vocab_size), d),
+    d, V = cfg.d_model, cfg.vocab_size
+    nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    params = dict(embed=normal((*nq, V, d), d), head=normal((*nq, d, V), d),
                   final_norm=full(1.0, (d,)))
     if cfg.attn_every:
         n_super, tail = _hybrid_shape(cfg)
@@ -117,6 +122,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
                                      ln=full(1.0, (d,)))
     else:
         params["layers"] = _layer_params(normal, full, cfg, cfg.n_layers)
+    if cfg.n_prefix_embeds:
+        params["prefix_proj"] = normal((d, d), d)
     return params
 
 
@@ -168,12 +175,20 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _channel_mix(lp: dict, cfg: ModelConfig, x: torch.Tensor,
+                 use_kernels: bool) -> torch.Tensor:
+    h = rms_norm(x, lp["ln2"])
+    if cfg.n_experts:
+        return x + moe_apply(lp["moe"], cfg, h, use_kernels)
+    return x + mlp_apply(lp["mlp"], h)
+
+
 def _layer_body(lp: dict, cfg: ModelConfig, x: torch.Tensor, cache_l,
                 pos0: int, use_kernels: bool,
                 k_pos: torch.Tensor | None) -> torch.Tensor:
-    """One layer: token mixer, then the SwiGLU channel mixer. The mixer's
-    new cache (keys/values, or the recurrent states) is written into
-    `cache_l` in place."""
+    """One layer: token mixer, then the channel mixer (SwiGLU or MoE). The
+    token mixer's new cache (keys/values, or the recurrent states) is
+    written into `cache_l` in place."""
     h = rms_norm(x, lp["ln1"])
     if cfg.token_mixer == "attention":
         out, _ = attention_apply(lp["attn"], cfg, h, cache_l, pos0,
@@ -185,8 +200,7 @@ def _layer_body(lp: dict, cfg: ModelConfig, x: torch.Tensor, cache_l,
             out, new = rwkv6_apply(lp["rwkv"], cfg, h, cache_l, use_kernels)
         for name, t in new.items():
             cache_l[name].copy_(t)
-    x = x + out
-    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]))
+    return _channel_mix(lp, cfg, x + out, use_kernels)
 
 
 def _run_hybrid(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -234,13 +248,27 @@ def _run_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
-def _embed(params: dict, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           prefix: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings [B, T, d], after the projected prefix when one is
+    given. Codebook tokens [B, T, nq] sum their embeddings in the model's
+    dtype, in the reference's order ((0 + e0) + e1) + ..."""
+    if cfg.n_codebooks:
+        x = sum(params["embed"][q][tokens[..., q]]
+                for q in range(cfg.n_codebooks))
+    else:
+        x = params["embed"][tokens]
+    if prefix is not None:
+        pre = prefix.to(x.dtype) @ params["prefix_proj"]
+        x = torch.cat([pre, x], dim=1)
+    return x
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    return rms_norm(h, params["final_norm"]) @ params["head"]
+    h = rms_norm(h, params["final_norm"])
+    if cfg.n_codebooks:
+        return torch.einsum("btd,qdv->btqv", h, params["head"])
+    return h @ params["head"]
 
 
 # ---------------------------------------------------------------------------
@@ -248,21 +276,26 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            max_len: int | None = None, use_kernels: bool = True):
-    """Process the prompt tokens [B, T]; return (last-position logits
-    [B, 1, V], filled cache)."""
-    B, T = tokens.shape
+            prefix: torch.Tensor | None = None, max_len: int | None = None,
+            *, use_kernels: bool = True):
+    """Process the prompt: tokens [B, T] (codebook tokens [B, T, nq]) after
+    an optional prefix of embeddings [B, P, d_model], which takes cache
+    positions 0..P-1. Returns (last-position logits [B, 1, V] or
+    [B, 1, nq, V], filled cache)."""
+    B = tokens.shape[0]
+    T = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
     cache = init_cache(cfg, B, max_len or T, tokens.device)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, prefix)
     h = _run_layers(params, cfg, x, cache, 0, use_kernels)
     return _logits(params, cfg, h[:, -1:]), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor, pos: int, use_kernels: bool = True):
-    """One autoregressive step. tokens: [B, 1]; pos: the number of
-    positions already in the cache. Updates `cache` in place and returns
-    (logits [B, 1, V], cache)."""
-    x = _embed(params, cfg, tokens)
+    """One autoregressive step. tokens: [B, 1] (or [B, 1, nq]); pos: the
+    number of positions already in the cache (prefix included). Updates
+    `cache` in place and returns (logits [B, 1, V] or [B, 1, nq, V],
+    cache)."""
+    x = _embed(params, cfg, tokens, None)
     h = _run_layers(params, cfg, x, cache, int(pos), use_kernels)
     return _logits(params, cfg, h), cache

@@ -2,7 +2,10 @@
 
 The reference keeps weights as `x @ W` with W [d_in, d_out] and per-layer
 tensors stacked on axis 0, exactly the port's layout, so loading is a
-plain copy of every leaf in its own dtype."""
+plain copy of every leaf in its own dtype: bf16, f32 and the W8A8
+experts' int8 weights alike. The MoE tree (router, stacked experts, their
+scales, the shared expert) and the io variants' leaves (codebook embed and
+head [nq, V, d] / [nq, d, V], `prefix_proj`) come across unchanged."""
 from __future__ import annotations
 
 import numpy as np

@@ -27,13 +27,27 @@ class Request:
     output: list[int] = dataclasses.field(default_factory=list)
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a configuration the engine cannot
+    serve: one with codebook tokens, whose prompts are [T, nq] (musicgen
+    runs through `decoder.prefill` / `decode_step` instead). The
+    reference's engine cannot serve them either (its prompts are 1-D).
+    Prefix-capable configs are served with text-only prompts, as the
+    reference serves them (it never passes a prefix)."""
+    decoder.check_supported(cfg)
+    if cfg.n_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves 1-D token prompts, not "
+            f"{cfg.n_codebooks}-codebook tokens")
+
+
 class Engine:
     """Single-deployment engine (one model, one parallelism config). Runs
     on the device that holds `params`."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_len: int,
                  max_batch: int):
-        decoder.check_supported(cfg)
+        check_servable(cfg)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len

@@ -596,6 +596,186 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         rwkv6_wkv(*(t[..., :48] for t in (r, k, v, lw)), u[:, :48])
 
 
+# -- the MoE and io configs' attention widths ------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV", [(40, 8), (48, 8), (64, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_moe_and_vlm_widths(dev, H, KV, dtype):
+    """hd 128 at llama4-scout's G 5, internvl2-26b's G 6 and kimi-k2's G 8,
+    with the MoE configs' 8192 window: prefill over a ragged T, and decode
+    over the window's slot map at S below the window (unfilled slots
+    marked empty) and over a ring map with empty slots."""
+    from repro_torch.models.layers import EMPTY_SLOT, decode_key_positions
+
+    rng = np.random.default_rng(H)
+    B, T, hd, W = 2, 333, 128, 8192
+    q = _model_layout(rng, B, T, H, hd, dtype, dev)
+    k = _model_layout(rng, B, T, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, T, KV, hd, dtype, dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)
+    _assert_matches(flash_attention(q, k, v, pos, pos, window=W),
+                    attention_ref(*_f32(q, k, v), pos, pos, window=W))
+    S = 700
+    qd = torch.from_numpy(rng.normal(size=(B, KV, H // KV, hd)).astype(
+        np.float32)).to(dev, dtype)
+    kc = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    vc = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    for p in (0, 131, S - 1):
+        k_pos = decode_key_positions(S, p, W, dev)
+        _assert_matches(decode_attention(qd, kc, vc, k_pos, p),
+                        decode_attention_ref(*_f32(qd, kc, vc), k_pos, p))
+    last = 2500
+    slots = torch.arange(S, device=dev)
+    ring = last - ((last - slots) % S)
+    ring[::9] = EMPTY_SLOT
+    ring = ring.to(torch.int32)
+    _assert_matches(decode_attention(qd, kc, vc, ring, last),
+                    decode_attention_ref(*_f32(qd, kc, vc), ring, last))
+
+
+# -- the grouped int8 GEMM of the W8A8 experts ---------------------------
+# Integer sums: the kernel must equal its plain version bit for bit.
+
+def _int8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(-128, 128, size=shape,
+                                         dtype=np.int8)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N", [
+    (4, 1, 7168, 2048), (4, 1, 2048, 7168), (3, 1, 5120, 8192),
+    (3, 1, 8192, 5120), (2, 17, 7168, 2048), (2, 208, 7168, 2048),
+    (2, 208, 2048, 7168), (2, 624, 5120, 8192), (2, 624, 8192, 5120),
+    (5, 63, 80, 48), (3, 65, 144, 272), (1, 130, 16, 16), (2, 1000, 96, 160),
+    (7, 129, 2048, 2048),
+])
+def test_int8_grouped_matmul_matches_plain(dev, E, C, K, N):
+    """C of a decode step (1), 17, kimi-k2's prefill 208, llama4-scout's
+    624 and ragged ones; K and N at the experts' widths (2048, 5120, 7168,
+    8192) and at ragged multiples of 16 (a partial k slice, a partial
+    column tile)."""
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    from repro_torch.kernels.int8_grouped_matmul.ref import \
+        int8_grouped_matmul_ref
+
+    rng = np.random.default_rng(E * C + K + N)
+    a, b = _int8(rng, (E, C, K), dev), _int8(rng, (E, K, N), dev)
+    n0 = int8_grouped_matmul.launches
+    got = int8_grouped_matmul(a, b)
+    torch.cuda.synchronize()
+    assert int8_grouped_matmul.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert torch.equal(got, int8_grouped_matmul_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_int8_grouped_matmul_extremes_and_strided_views(dev):
+    """The largest sums (every product 128**2 or -127 * 128) at K 8192, and
+    operands read through their strides: a window of a wider buffer, an
+    expert axis that is not outermost in memory, b's columns cut from a
+    wider matrix."""
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    from repro_torch.kernels.int8_grouped_matmul.ref import \
+        int8_grouped_matmul_ref
+
+    E, C, K, N = 3, 70, 8192, 256
+    lo = torch.full((E, C, K), -128, dtype=torch.int8, device=dev)
+    for b_val, want in ((-128, K * 128 * 128), (127, -K * 128 * 127)):
+        b = torch.full((E, K, N), b_val, dtype=torch.int8, device=dev)
+        got = int8_grouped_matmul(lo, b)
+        assert torch.equal(got, torch.full_like(got, want))
+    rng = np.random.default_rng(4)
+    E, C, K, N = 4, 45, 1040, 384
+    a_big = _int8(rng, (C + 7, E, K + 48), dev)
+    a = a_big[3:3 + C, :, 16:16 + K].transpose(0, 1)      # [E, C, K]
+    b = _int8(rng, (E, K, N + 64), dev)[:, :, 32:32 + N]
+    assert not a.is_contiguous() and not b.is_contiguous()
+    got = int8_grouped_matmul(a, b)
+    assert torch.equal(got, int8_grouped_matmul_ref(a.contiguous(),
+                                                    b.contiguous()))
+
+
+@pytest.mark.cuda
+def test_int8_grouped_matmul_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.int8_grouped_matmul import kernel as gk
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+
+    rng = np.random.default_rng(0)
+    a, b = _int8(rng, (2, 8, 64), dev), _int8(rng, (2, 64, 32), dev)
+    n0 = int8_grouped_matmul.launches
+    flat = torch.zeros(a.numel() + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):    # base off by one
+        int8_grouped_matmul(flat[1:].view(a.shape), b)
+    wide = _int8(rng, (2, 64, 40), dev)
+    with pytest.raises(ValueError, match="16-byte"):    # base off by 8
+        int8_grouped_matmul(a, wide[:, :, 8:40])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_grouped_matmul(a[:, :, :40], b[:, :40])
+    with pytest.raises(ValueError, match="incompatible"):
+        int8_grouped_matmul(a, b[:, :32])
+    with pytest.raises(TypeError):
+        int8_grouped_matmul(a.float(), b)
+    with pytest.raises(ValueError, match="is on"):
+        int8_grouped_matmul(a, b.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        gk.int8_grouped_matmul(a.cpu(), b.cpu())
+    assert int8_grouped_matmul.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8a8", [False, True])
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e"])
+def test_moe_apply_on_card_matches_cpu(dev, arch, w8a8):
+    """moe_apply on CUDA tensors against device="cpu" on the same weights
+    and input (f32 smoke widths, 128 tokens, so that copies drop): the
+    same routes, the output at 2e-5. W8A8 runs its three products on the
+    int8 kernel and is held within one step of its second activation
+    quantisation (an ulp of silu can move h / scale across a rounding
+    boundary) plus 2e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    from repro_torch.models import decoder, moe
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), n_layers=1,
+                              moe_w8a8=w8a8)
+    p = decoder._layer(decoder.init_params(
+        torch.Generator().manual_seed(0), cfg)["layers"]["moe"], 0)
+    p_dev = {k: ({n: t.to(dev) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 64, cfg.d_model)).astype(np.float32))
+    want = moe.moe_apply(p, cfg, x)
+    n0 = int8_grouped_matmul.launches
+    got = moe.moe_apply(p_dev, cfg, x.to(dev))
+    torch.cuda.synchronize()
+    assert int8_grouped_matmul.launches == n0 + (3 if w8a8 else 0)
+    xf = x.reshape(-1, cfg.d_model)
+    assert torch.equal(moe.route(p_dev, cfg, xf.to(dev))[1].cpu(),
+                       moe.route(p, cfg, xf)[1])
+    atol = 2e-5
+    if w8a8:
+        # One step: the largest row scale of h times the largest |w2|, over
+        # every token in every expert (a superset of the dispatched rows).
+        qb, bs = moe._quant_act(xf)
+        h = torch.stack([
+            torch.nn.functional.silu((qb.double() @ p["w1"][e].double()
+                                      ).float() * bs * p["w1_s"][e])
+            * ((qb.double() @ p["w3"][e].double()).float() * bs
+               * p["w3_s"][e])
+            for e in range(cfg.n_experts)])
+        atol += float(moe._quant_act(h)[1].max()) * float(
+            (127.0 * p["w2_s"]).max())
+    torch.testing.assert_close(got.cpu(), want, atol=atol, rtol=2e-5)
+
+
 # -- the Stage-2 risk solver in f64 on the card --------------------------
 # Its device programs are plain torch operations, not hand-written kernels;
 # these tests hold the card's run against the port's exact oracle (HiGHS on

@@ -112,12 +112,20 @@ def test_config_registry_matches_reference():
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b",
                                   "musicgen-medium", "internvl2-26b"])
-def test_unsupported_configs_raise(arch):
-    cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError):
-        decoder.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError):
-        decoder.init_cache(cfg, 1, 8, "cpu")
+def test_formerly_refused_configs_build(arch):
+    """The MoE and io configs, refused before the port had them, build:
+    `init_params` and `init_cache` give the reference's shapes."""
+    ref_cfg, cfg = ref_get_config(arch).smoke(), get_config(arch).smoke()
+    want = _leaves(ref_decoder.init_params(jax.random.PRNGKey(0), ref_cfg))
+    got = _leaves(decoder.init_params(torch.Generator().manual_seed(0), cfg))
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        assert tuple(got[name].shape) == w.shape, name
+    want = _leaves(ref_decoder.init_cache(ref_cfg, 1, 8))
+    got = _leaves(decoder.init_cache(cfg, 1, 8, "cpu"))
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        assert tuple(got[name].shape) == w.shape, name
 
 
 # ---------------------------------------------------------------- layers
