@@ -80,13 +80,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      256-row prefix) and musicgen-medium (64-row prefix) in f32 and bf16,
      and kimi-k2 (1 layer) in bf16, where a miss is held to the routes the
      two paths took (`check_route_flips`).
+  11. train on the card: the flash-attention forward's log-sum-exp and
+     the backward kernel against their plain versions (f32 at 2e-5 of
+     max|want|; bf16 per row at 2e-2, and within twice the plain bf16
+     path's L2 distance to the exact f32 gradient; two launches bitwise
+     equal) at qwen2-0.5b's training shape (B 8, H 14, KV 2, T 2048, hd
+     64), a ragged T with Tq != Tk and window 256, hd 128 at G 8 and a row
+     with no admissible key; one full-width 2-layer train step, kernels vs
+     plain (f32: loss 1e-5, every gradient leaf 1e-4 relative L2; bf16:
+     each leaf within twice the plain path's distance to the f32 gradient
+     plus 1e-3); qwen2-0.5b whole in bf16 trains 20 steps of
+     PackedStream(151,936, 2048, 8) through the launcher's `train` (the
+     loss must fall by 0.2; 48 flash and 24 backward launches a step),
+     step ms, tokens/s, peak memory and one profiled step; its step-10
+     checkpoint restored bit for bit and 3 steps from it against 3 from
+     the live state; the backward's time beside its bound, its plain
+     version and SDPA's backward, and the forward with and without LSE.
 
-Phases 8, 9 and 10 print their numbers as JSON lines {"risk": ...},
-{"allocator": ...}, {"closed_loop": ...} and {"moe_io": ...}. The line
-before the last is the kernel table as JSON; the last line is {"ok":
-true, "device": {...}}. Without a CUDA device the run fails. To run phase
-9 or 10 alone on a card: python -c "import chip_smoke as cs;
-cs.plan_and_replan()" (or cs.moe_and_io()).
+Phases 8, 9, 10 and 11 print their numbers as JSON lines {"risk": ...},
+{"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...} and
+{"training": ...}. The line before the last is the kernel table as JSON;
+the last line is {"ok": true, "device": {...}}. Without a CUDA device the
+run fails. To run phase 9, 10 or 11 alone on a card: python -c "import
+chip_smoke as cs; cs.plan_and_replan()" (or cs.moe_and_io(),
+cs.train_and_check()).
 """
 from __future__ import annotations
 
@@ -442,11 +459,14 @@ def kernel_ops() -> dict:
     """Each kernel's public op, which counts its launches."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention_bwd.ops import \
+        flash_attention_bwd
     from repro_torch.kernels.int8_grouped_matmul.ops import \
         int8_grouped_matmul
     from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     return {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
             "ssm_scan": ssm_scan, "rwkv6_wkv": rwkv6_wkv,
             "int8_grouped_matmul": int8_grouped_matmul}
@@ -1879,6 +1899,462 @@ def merge_moe_io_rows(rows, moe_io):
     return rows
 
 
+# Phase 11: train on the card. qwen2-0.5b whole at its training shape
+# (PackedStream batches of 8 x 2048 tokens), AdamW with a 2-step warmup
+# over 20 steps, and the attention backward's checks. The bf16
+# gradients are held per row (last axis) at 2e-2 relative, each no more
+# than twice as far from the f32 gradient as the plain path run in bf16
+# (autograd through the attention math in bf16, what a port without the
+# kernel would train with); a row whose exact gradient vanishes is
+# measured against 1e-3 of the mean row norm (see `bwd_row_rel`).
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2048, 20
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+BWD_F32_REL, BWD_BF16_ROW_REL = 2e-5, 2e-2
+STEP_F32_REL_L2 = 1e-4      # 2-layer train step, every gradient leaf
+TRAIN_PATH = f"{ARCH} train ({TRAIN_STEPS} steps)"
+
+
+def bwd_row_rel(got, want, wants) -> float:
+    """Largest |got - want|_2 / max(|want|_2, 1e-3 R) over the last axis's
+    rows, R the mean row norm over `wants` (dq, dk and dv together): the
+    first query's dq (it sees key 0 alone: P = 1, dP - D = 0) has no
+    relative scale."""
+    got, want = got.float(), want.float()
+    R = torch.cat([w.float().norm(dim=-1).flatten() for w in wants]).mean()
+    return ((got - want).norm(dim=-1)
+            / torch.maximum(want.norm(dim=-1), 1e-3 * R)).max().item()
+
+
+def _plain_bf16_grads(q, k, v, do, q_pos, k_pos, window):
+    """dq, dk, dv of the attention math run in bf16 (logits, softmax and
+    P V rounded to bf16, as a plain bf16 port would train), by autograd."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    qq, kk, vv = leaves
+    G = q.shape[1] // k.shape[1]
+    kk, vv = (t.repeat_interleave(G, dim=1) for t in (kk, vv))
+    s = (qq @ kk.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    grads = torch.autograd.grad(p @ vv, leaves, do)
+    return grads
+
+
+def check_attention_bwd(dev, seed):
+    """Phase 11.1: the forward's LSE and the backward kernel against their
+    plain versions in f32 on the same, exactly upcast inputs (q, k, v, dO
+    and the kernel's own o and LSE); in bf16 also the whole gradients'
+    relative L2 distance to the exact f32 gradient (the f32 forward's o
+    and LSE), at most twice the plain bf16 path's. Returns the worst
+    errors and the bf16 inputs at the training shape."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
+    from repro_torch.kernels.flash_attention_bwd import kernel as bk
+    from repro_torch.kernels.flash_attention_bwd.ref import \
+        flash_attention_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # (label, B, H, KV, Tq, Tk, hd, window, a row with no admissible key)
+    cases = [("train", TRAIN_B, 14, 2, TRAIN_T, TRAIN_T, 64, 0, False),
+             ("ragged", 4, 14, 2, 777, 999, 64, 256, False),
+             ("hd128", 2, 64, 8, 1024, 1024, 128, 8192, False),
+             ("lost-row", 2, 4, 1, 130, 515, 64, 50, True)]
+    errs = dict(lse=0.0, f32=0.0, bf16=0.0, bf16_abs=0.0,
+                bf16_over_plain=0.0)
+    main = None
+    for label, B, H, KV, Tq, Tk, hd, window, lost in cases:
+        q_pos = torch.arange(Tk - Tq, Tk, dtype=torch.int32, device=dev)
+        if lost:
+            q_pos[3] = -5
+        k_pos = torch.arange(Tk, dtype=torch.int32, device=dev)
+        base = [model_layout(gen, B, T, h, hd, torch.float32, dev)
+                for T, h in ((Tq, H), (Tk, KV), (Tk, KV), (Tq, H))]
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{label} {str(dtype).split('.')[-1]}"
+            q, k, v, do = (t.to(dtype) for t in base)
+            o, lse = fk.flash_attention(q, k, v, q_pos, k_pos, window,
+                                        with_lse=True)
+            got = bk.flash_attention_bwd(q, k, v, o, lse, do, q_pos, k_pos,
+                                         window)
+            again = bk.flash_attention_bwd(q, k, v, o, lse, do, q_pos, k_pos,
+                                           window)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"flash_attention_bwd {tag}: two launches differ")
+            del again
+            lse_want = lse_ref(*f32(q, k), q_pos, k_pos, window)
+            if not torch.equal(torch.isinf(lse), torch.isinf(lse_want)):
+                fail(f"flash_attention lse {tag}: lost rows marked wrongly")
+            fin = torch.isfinite(lse_want)
+            lse_err = (lse[fin] - lse_want[fin]).abs().max().item()
+            lse_tol = F32_TOL if dtype == torch.float32 else 1e-4
+            errs["lse"] = max(errs["lse"], lse_err)
+            line = f"  {tag} B={B} H={H} KV={KV} Tq={Tq} Tk={Tk} hd={hd} " \
+                   f"window={window}: lse max_abs_err={lse_err:.3e} " \
+                   f"(tol {lse_tol:g})"
+            if lse_err > lse_tol:
+                fail(f"flash_attention lse {tag} disagrees: {lse_err:.3e}")
+            want = flash_attention_bwd_ref(*f32(q, k, v, o), lse, do.float(),
+                                           q_pos, k_pos, window)
+            if dtype == torch.float32:
+                rel = max((g - w).abs().max().item()
+                          / w.abs().max().clamp_min(1e-30).item()
+                          for g, w in zip(got, want))
+                errs["f32"] = max(errs["f32"], rel)
+                ok = rel <= BWD_F32_REL
+                print(f"{line}; dq/dk/dv max_abs_err / max|want| = "
+                      f"{rel:.3e} (tol {BWD_F32_REL:g}) "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    fail(f"flash_attention_bwd {tag} disagrees")
+                continue
+            o32 = attention_ref(*f32(q, k, v), q_pos, k_pos, window)
+            exact = flash_attention_bwd_ref(*f32(q, k, v), o32, lse_want,
+                                            do.float(), q_pos, k_pos, window)
+            plain = _plain_bf16_grads(q, k, v, do, q_pos, k_pos, window)
+            for name, g, w, pl, ex in zip(("dq", "dk", "dv"), got, want,
+                                          plain, exact):
+                rel = bwd_row_rel(g, w, want)
+                dist, dist_plain = _rel_l2(g.float(), ex), _rel_l2(
+                    pl.float(), ex)
+                errs["bf16"] = max(errs["bf16"], rel)
+                errs["bf16_abs"] = max(errs["bf16_abs"],
+                                       (g.float() - w).abs().max().item())
+                errs["bf16_over_plain"] = max(errs["bf16_over_plain"],
+                                              dist / dist_plain)
+                ok = rel <= BWD_BF16_ROW_REL and dist <= 2 * dist_plain
+                print(f"{line}; {name} max_row_rel_err={rel:.3e} (tol "
+                      f"{BWD_BF16_ROW_REL:g}); rel L2 to the exact f32 "
+                      f"gradient {dist:.3e}, the plain bf16 path's "
+                      f"{dist_plain:.3e} (tol 2x) "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    fail(f"flash_attention_bwd {tag} {name} disagrees")
+            if label == "train":
+                main = (q, k, v, o, lse, do, q_pos, k_pos)
+            del plain, exact, o32
+        del base, want, got
+        torch.cuda.empty_cache()
+    return errs, main
+
+
+def _grads(params, cfg, batch, use_kernels):
+    from repro_torch.models import decoder
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.train_loop import as_trainable
+
+    params = as_trainable(params)
+    loss = decoder.train_loss(params, cfg, batch, use_kernels=use_kernels)
+    return loss.detach(), [g.float() for g in torch.autograd.grad(
+        loss, leaves(params))]
+
+
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def check_train_step(dev, seed):
+    """Phase 11.2: qwen2-0.5b at full width, 2 of 24 layers, one training
+    batch: loss and every gradient leaf, kernels vs plain, in f32 and in
+    bf16 (the same bf16-rounded weights)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+    from repro_torch.training.data import DataConfig, PackedStream
+    from repro_torch.training.train_loop import batch_on
+
+    cfg16 = dataclasses.replace(get_config(ARCH), n_layers=2)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    params16 = decoder.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg16)
+    params32 = _tree_map(lambda x: x.float(), params16)
+    batch = batch_on(PackedStream(DataConfig(
+        vocab_size=cfg16.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B,
+        seed=0)).batch(0), dev)
+    names = [n for n, _ in sorted(_named(params16))]
+    lk, gk = _grads(params32, cfg32, batch, True)
+    lp, gp = _grads(params32, cfg32, batch, False)
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    worst = max((_rel_l2(a, b), n) for n, a, b in zip(names, gk, gp))
+    ok = loss_rel <= 1e-5 and worst[0] <= STEP_F32_REL_L2
+    print(f"  f32 {ARCH} (2 layers) train step B={TRAIN_B} T={TRAIN_T}, "
+          f"kernels vs plain: loss {lk.item():.6f} vs {lp.item():.6f} "
+          f"(rel {loss_rel:.2e}, tol 1e-05); worst gradient leaf "
+          f"{worst[1]} rel L2 {worst[0]:.3e} (tol {STEP_F32_REL_L2:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the f32 train step's kernels and plain paths disagree")
+    # bf16: the f32 gradient of the same bf16-rounded weights (the plain
+    # path's, just computed) is the truth.
+    del gk
+    lt, gt = lp, gp
+    l16k, g16k = _grads(params16, cfg16, batch, True)
+    l16p, g16p = _grads(params16, cfg16, batch, False)
+    out = {"f32_loss_rel": loss_rel, "f32_worst_leaf_rel_l2": worst[0],
+           "bf16_leaves": {}}
+    bad = []
+    for n, a, b, t in zip(names, g16k, g16p, gt):
+        rk, rp = _rel_l2(a, t), _rel_l2(b, t)
+        out["bf16_leaves"][n] = (rk, rp)
+        if rk > 2 * rp + E2E_TOL:
+            bad.append(n)
+    worst16 = max(out["bf16_leaves"].items(), key=lambda kv: kv[1][0])
+    print(f"  bf16 {ARCH} (2 layers) train step: loss kernels "
+          f"{l16k.item():.5f}, plain {l16p.item():.5f}, f32 "
+          f"{lt.item():.5f}; worst leaf {worst16[0]}: rel L2 to the f32 "
+          f"gradient kernels {worst16[1][0]:.3e}, plain "
+          f"{worst16[1][1]:.3e} (tol 2x plain + {E2E_TOL:g}) "
+          f"{'ok' if not bad else 'MISMATCH ' + str(bad)}", flush=True)
+    if bad:
+        fail(f"bf16 train-step gradients too far from f32: {bad}")
+    del params16, params32, g16k, g16p, gt, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _named(tree, prefix=""):
+    """(path, tensor) of every leaf, dict keys sorted as `leaves` orders
+    them."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
+def _step_ms(*histories) -> list[float]:
+    """Per-step wall ms from train()'s log_every=1 histories (each
+    history's wall clock starts at its own first step)."""
+    out = []
+    for h in histories:
+        walls = [0.0] + [r["wall_s"] for r in h]
+        out += [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    return out
+
+
+def train_on_card(dev, seed, ckpt_dir):
+    """Phase 11.3-11.4: qwen2-0.5b whole in bf16 trains 20 steps through
+    the launcher's `train` (10 steps, a checkpoint, then 10 more from the
+    live state), launch counts per step, step times, peak memory and one
+    step under torch.profiler; then the step-10 checkpoint restored
+    bitwise and 3 steps from it against 3 from the live state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import checkpoint
+    from repro_torch.training.data import DataConfig, PackedStream
+    from repro_torch.training.optimizer import AdamWConfig, leaves
+    from repro_torch.training.train_loop import batch_on, make_train_step, \
+        train
+
+    cfg = get_config(ARCH)
+    opt = AdamWConfig(**TRAIN_OPT)
+    stream = PackedStream(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=TRAIN_T, batch_size=TRAIN_B,
+                                     seed=0))
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    half = TRAIN_STEPS // 2
+    p10, h1, s10 = train(cfg, opt, stream, half, rng=gen, log_every=1,
+                         ckpt_path=ckpt_dir, ckpt_every=half, device=dev,
+                         return_state=True)
+    _, h2, _ = train(cfg, opt, stream, TRAIN_STEPS, log_every=1, params=p10,
+                     opt_state=s10, device=dev, return_state=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: op.launches for name, op in ops.items()}
+    hist = h1 + h2
+    losses = [h["loss"] for h in hist]
+    ms = _step_ms(h1, h2)
+    med = float(np.median(ms[3:]))
+    n_par = sum(t.numel() for t in leaves(p10))
+    print(f"  {ARCH} whole ({cfg.n_layers} layers, {n_par / 1e9:.3f} B "
+          f"parameters, bf16) {TRAIN_STEPS} steps of B={TRAIN_B} "
+          f"T={TRAIN_T}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"  step ms {[round(x, 1) for x in ms]}; median of steps 4-"
+          f"{TRAIN_STEPS} {med:.1f} ms, {TRAIN_B * TRAIN_T / med * 1e3:.0f} "
+          f"tokens/s; peak {peak:.2f} GiB allocated; launches {launches}",
+          flush=True)
+    if not losses[-1] < losses[0] - 0.2:
+        fail(f"the loss did not fall by 0.2: {losses[0]} -> {losses[-1]}")
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times in "
+                 f"{TRAIN_STEPS} steps, want {n}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite losses {losses}")
+
+    # One more step under the profiler.
+    step_fn = make_train_step(cfg, opt)
+    batch = batch_on(stream.batch(TRAIN_STEPS), dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(p10, s10, batch)
+        float(out[2]["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    trace = None
+    if rows:
+        trace = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                     busy=busy_ms / wall_ms,
+                     launches=sum(e.count for e in rows),
+                     top=[(e.key[:80], e.self_device_time_total / 1e3,
+                           e.count) for e in sorted(
+                               rows, key=lambda e: -e.self_device_time_total
+                           )[:12]])
+        print(f"  one traced step: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms ({100 * trace['busy']:.1f}% busy), "
+              f"{trace['launches']} kernel launches", flush=True)
+        for key, t, n in trace["top"]:
+            print(f"    {t:9.3f} ms  {n:6d}x  {key}")
+    else:
+        print("  device trace: not measured (the profiler saw no CUDA "
+              "kernels)")
+
+    # Phase 11.4: the step-10 checkpoint, restored into fresh tensors.
+    saved, meta = checkpoint.restore(ckpt_dir, dev)
+    if meta != dict(step=half, arch=cfg.name):
+        fail(f"checkpoint meta {meta}")
+    live = dict(params=p10, opt_state=s10)
+    pairs = list(zip(_named(saved), _named(live)))
+    for (n1, a), (n2, b) in pairs:
+        if n1 != n2 or a.dtype != b.dtype or not torch.equal(a, b.detach()):
+            fail(f"checkpoint leaf {n1} is not what was saved ({n2})")
+    print(f"  checkpoint at step {half}: {len(pairs)} leaves restored bit "
+          f"for bit", flush=True)
+    three = dict(log_every=1, device=dev)
+    _, again = train(cfg, opt, stream, half + 3, params=p10, opt_state=s10,
+                     **three)
+    _, resumed = train(cfg, opt, stream, half + 3, params=saved["params"],
+                       opt_state=saved["opt_state"], **three)
+    live1 = [h["loss"] for h in h2[:3]]
+    live2 = [h["loss"] for h in again]
+    res = [h["loss"] for h in resumed]
+    spread = [abs(a - b) for a, b in zip(live1, live2)]
+    ok = all(abs(r - a) <= s for r, a, s in zip(res, live1, spread))
+    print(f"  steps {half + 1}-{half + 3}: from the checkpoint {res}, "
+          f"from the live state {live1} and again {live2} (spread "
+          f"{spread}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("steps from the restored checkpoint differ from the live ones "
+             "beyond the spread of two live runs")
+    result = dict(config=cfg.name, layers=cfg.n_layers, params_b=n_par / 1e9,
+                  batch=TRAIN_B, seq=TRAIN_T, steps=TRAIN_STEPS,
+                  losses=losses, step_ms=ms, median_step_ms=med,
+                  tokens_per_s=TRAIN_B * TRAIN_T / med * 1e3, peak_gib=peak,
+                  launches=launches,
+                  launches_per_step={k: launches[k] / TRAIN_STEPS
+                                     for k in want},
+                  trace=trace, resume=dict(restored=res, live=live1,
+                                           live_again=live2))
+    del p10, s10, saved, live
+    torch.cuda.empty_cache()
+    return result
+
+
+def time_attention_bwd(main):
+    """Phase 11.5: the backward kernel at the training shape beside its
+    bound, its plain version and SDPA's backward (through autograd, a
+    yardstick the port never calls); the forward with and without its
+    LSE output."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention_bwd import kernel as bk
+    from repro_torch.kernels.flash_attention_bwd.ref import \
+        flash_attention_bwd_ref
+
+    q, k, v, o, lse, do, q_pos, k_pos = main
+    B, H, T, hd = q.shape
+    sets = [(q, k, v, o, lse, do)] + [
+        tuple(t.clone(memory_format=torch.preserve_format)
+              for t in (q, k, v, o, lse, do)) for _ in range(2)]
+    ms, eager = time_ms([lambda a=a: bk.flash_attention_bwd(*a, q_pos, k_pos)
+                         for a in sets], n=24)
+    pairs = T * (T + 1) // 2
+    # Read q, o, dO, k, v, lse and the positions once; write dq, dk, dv.
+    n_bytes = (q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                   + 2 * v.numel())
+               + 4 * lse.numel() + 4 * 2 * T)
+    b, by = bound(n_bytes, 5 * 2.0 * pairs * hd * B * H)
+    plain = _event_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, o, lse, do, q_pos, k_pos), 2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    lib = _event_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True), 10)
+    del out, leaves
+    fwd = {}
+    for with_lse in (False, True):
+        fwd[with_lse] = time_ms([lambda a=a, w=with_lse: fk.flash_attention(
+            *a[:3], q_pos, k_pos, 0, with_lse=w) for a in sets])[0]
+    row = dict(ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
+               bound_by=by, library_ms=lib,
+               shape=f"B={B} H={H} KV={k.shape[1]} T={T} hd={hd} bfloat16 "
+                     f"causal",
+               fwd_ms=fwd[False], fwd_with_lse_ms=fwd[True])
+    print(f"  flash_attention_bwd [{row['shape']}]: {ms:.4f} ms (eager "
+          f"{eager:.4f}), bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% of "
+          f"it), plain {plain:.2f} ms, SDPA backward {lib:.4f} ms; forward "
+          f"{fwd[False]:.4f} ms, with LSE {fwd[True]:.4f} ms", flush=True)
+    return row
+
+
+def train_and_check(dev=None, seed: int = 0) -> dict:
+    """Phase 11: train on the card. Returns {"training": ..., "bwd_row":
+    the kernel table's backward row}; fails on any check."""
+    import tempfile
+
+    dev = dev or torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase("11. train: the attention backward vs its plain version")
+    errs, main = check_attention_bwd(dev, seed)
+    phase("11. train: a 2-layer full-width train step, kernels vs plain")
+    step = check_train_step(dev, seed)
+    phase(f"11. train {ARCH} on the card")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        run = train_on_card(dev, seed, ckpt)
+    phase("11. train: kernel times")
+    timed = time_attention_bwd(main)
+    del main
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"  phase 11 took {wall:.1f}s", flush=True)
+    bwd_row = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces=SOURCES["flash_attention"],
+        replaces_note="the backward of the flash-attention kernel; the "
+                      "reference differentiates its XLA attention instead",
+        launches=run["launches"]["flash_attention_bwd"],
+        launches_by_path={TRAIN_PATH: run["launches"]["flash_attention_bwd"]},
+        max_abs_err=errs["bf16_abs"], max_row_rel_err=errs["bf16"],
+        f32_max_rel_err=errs["f32"],
+        **{k: v for k, v in timed.items()
+           if k not in ("fwd_ms", "fwd_with_lse_ms")})
+    return dict(training=dict(run, attention_bwd_errors=errs,
+                              train_step_check=step, wall_s=wall,
+                              fwd_ms=timed["fwd_ms"],
+                              fwd_with_lse_ms=timed["fwd_with_lse_ms"]),
+                bwd_row=bwd_row)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1962,6 +2438,20 @@ def main(argv=None) -> int:
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"moe_io": {k: v for k, v in moe_io.items()
                                  if k not in ("int8", "attention")}}))
+
+    trained = train_and_check(dev, args.seed)
+    for r in rows:
+        if r["name"] == "flash_attention":
+            n = trained["training"]["launches"]["flash_attention"]
+            r["launches_by_path"][TRAIN_PATH] = n
+            r["launches"] += n
+            r["train_fwd"] = {
+                "shape": trained["bwd_row"]["shape"],
+                "ms": trained["training"]["fwd_ms"],
+                "with_lse_ms": trained["training"]["fwd_with_lse_ms"]}
+    rows.insert(1, trained["bwd_row"])
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"training": trained["training"]}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -272,35 +272,6 @@ constexpr int bf16_smem_bytes() {
   return DCfg<HD>::RING_BYTES + RING * DBK * 4 + GMAX * DCfg<HD>::LD * 2;
 }
 
-// d (16x8, f32) += a (16x16, row) * b (16x8, col); bf16 in. Fragments (PTX
-// ISA), g = lane / 4, t = lane % 4: a regs (row g, k 2t..2t+1), (row g+8,
-// ..), (row g, k 2t+8..), (row g+8, k 2t+8..); b regs (k 2t..2t+1, col g),
-// (k 2t+8.., col g); d: (row g, col 2t, 2t+1), (row g+8, col 2t, 2t+1).
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
 template <int HD>
 __global__ void __launch_bounds__(DNT) decode_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

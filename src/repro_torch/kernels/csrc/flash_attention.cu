@@ -9,7 +9,10 @@
 // k_pos <= q_pos and, with window > 0, k_pos > q_pos - window. A key masked
 // by position gets the logit -1e30 as in the reference, so a row with no
 // admissible key averages v over all keys. m, l and the accumulator are f32;
-// l is clamped at 1e-30; the output has the input's type.
+// l is clamped at 1e-30; the output has the input's type. For training, an
+// optional `lse` output takes each row's log-sum-exp m + log l in natural
+// log (the wgmma kernel converts from its exp2 domain), +inf for a row with
+// no admissible key; flash_attention_bwd.cu reads it.
 //
 // What bounds it on the H100: at prefill lengths attention does ~T/2
 // multiply-adds per byte it reads, far above the card's ~295 FLOP/byte
@@ -99,7 +102,7 @@ __device__ __forceinline__ void range64(int tid, bool valid, int x,
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
     int Tq, int Tk, int G, int window, float scale,
     Strides sq, Strides sk, Strides sv, Strides so) {
@@ -261,6 +264,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     if (!__syncthreads_or(lost)) break;
   }
 
+  float* lse_b = lse ? lse + ((int64_t)b * gridDim.y + h) * Tq : nullptr;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
@@ -269,6 +273,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
     for (int c = 0; c < CP; ++c)
       ob[qi * so.t + (tx + 16 * c) * so.d] = from_float<T>(acc[i][c] / l);
+    if (lse_b && tx == 0)
+      lse_b[qi] = m_i[i] <= kNegInf ? INFINITY : m_i[i] + logf(l_i[i]);
   }
 }
 
@@ -314,8 +320,9 @@ __global__ void __launch_bounds__(WNT, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos, int Tq,
-    int Tk, int G, int window, float scale_log2, Strides so) {
+    float* __restrict__ lse, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, int Tq, int Tk, int G, int window,
+    float scale_log2, Strides so) {
   using C = WCfg<HD>;
   using bf16 = __nv_bfloat16;
   extern __shared__ unsigned char smem_raw[];
@@ -585,6 +592,12 @@ __global__ void __launch_bounds__(WNT, 1) flash_fwd_wgmma_kernel(
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[i] = 1.f / fmaxf(l, 1e-30f);
+    // m is in the exp2 domain of the pre-scaled logits: natural-log LSE.
+    const int qi = q0 + r0 + 8 * i;
+    if (lse && t == 0 && qi < Tq)
+      lse[((int64_t)b * gridDim.y + h) * Tq + qi] =
+          m_i[i] <= kNegInf ? INFINITY
+                            : (m_i[i] + log2f(l)) * 0.6931471805599453f;
   }
   const int rl = r0 - cw * 64;               // row within the warpgroup
 #pragma unroll
@@ -659,10 +672,10 @@ bool make_map(CUtensorMap* map, const void* base, int hd, int T, int heads,
 
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         const int* q_pos, const int* k_pos, int B, int H,
-                         int KV, int Tq, int Tk, int window, float scale,
-                         Strides sq, Strides sk, Strides sv, Strides so,
-                         cudaStream_t stream) {
+                         float* lse, const int* q_pos, const int* k_pos, int B,
+                         int H, int KV, int Tq, int Tk, int window,
+                         float scale, Strides sq, Strides sk, Strides sv,
+                         Strides so, cudaStream_t stream) {
   static unsigned long long done = 0;
   const int smem = WCfg<HD>::SMEM;
   cudaError_t err = set_smem_once(flash_fwd_wgmma_kernel<HD>, smem, &done);
@@ -674,7 +687,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   dim3 grid((Tq + WBQ - 1) / WBQ, H, B);
   flash_fwd_wgmma_kernel<HD><<<grid, WNT, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), q_pos, k_pos, Tq, Tk,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, q_pos, k_pos, Tq, Tk,
       H / KV, window, scale * 1.4426950408889634f, so);
   return cudaGetLastError();
 }
@@ -682,11 +695,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // f32 goes to the scalar kernel, bf16 to the wgmma one.
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* q_pos, const int* k_pos, int B, int H, int KV,
-                   int Tq, int Tk, int window, float scale, Strides sq,
-                   Strides sk, Strides sv, Strides so, cudaStream_t stream) {
+                   float* lse, const int* q_pos, const int* k_pos, int B,
+                   int H, int KV, int Tq, int Tk, int window, float scale,
+                   Strides sq, Strides sk, Strides sv, Strides so,
+                   cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_wgmma<HD>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk,
+    return launch_wgmma<HD>(q, k, v, o, lse, q_pos, k_pos, B, H, KV, Tq, Tk,
                             window, scale, sq, sk, sv, so, stream);
   } else {
     static unsigned long long done = 0;
@@ -696,45 +710,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     dim3 grid((Tq + BQ - 1) / BQ, H, B);
     flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), q_pos, k_pos, Tq, Tk,
-        H / KV, window, scale, sq, sk, sv, so);
+        static_cast<const T*>(v), static_cast<T*>(o), lse, q_pos, k_pos, Tq,
+        Tk, H / KV, window, scale, sq, sk, sv, so);
     return cudaGetLastError();
   }
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, const int* q_pos, const int* k_pos, int B,
-                        int H, int KV, int Tq, int Tk, int window, float scale,
-                        Strides sq, Strides sk, Strides sv, Strides so,
-                        cudaStream_t stream) {
+                        void* o, float* lse, const int* q_pos,
+                        const int* k_pos, int B, int H, int KV, int Tq, int Tk,
+                        int window, float scale, Strides sq, Strides sk,
+                        Strides sv, Strides so, cudaStream_t stream) {
+#define FA_LAUNCH(HD)                                                        \
+  launch<T, HD>(q, k, v, o, lse, q_pos, k_pos, B, H, KV, Tq, Tk, window,     \
+                scale, sq, sk, sv, so, stream)
   switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk, window,
-                           scale, sq, sk, sv, so, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk, window,
-                           scale, sq, sk, sv, so, stream);
-    case 112:
-      return launch<T, 112>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk, window,
-                           scale, sq, sk, sv, so, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk,
-                            window, scale, sq, sk, sv, so, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 32: return FA_LAUNCH(32);
+    case 64: return FA_LAUNCH(64);
+    case 112: return FA_LAUNCH(112);
+    case 128: return FA_LAUNCH(128);
+    default: return cudaErrorInvalidValue;
   }
+#undef FA_LAUNCH
 }
 
 }  // namespace
 
 // q [B, H, Tq, hd], k and v [B, KV, Tk, hd], o [B, H, Tq, hd], each given by
-// its element strides; q_pos [Tq] and k_pos [Tk] int32, contiguous.
-// Launches on `stream` and returns cudaGetLastError() after the launch.
+// its element strides; q_pos [Tq] and k_pos [Tk] int32, contiguous. lse,
+// when not null, receives each row's natural-log log-sum-exp of the scaled
+// logits, [B, H, Tq] f32 contiguous, +inf for a row with no admissible key
+// (the backward gives that row the uniform average's gradient); serving
+// passes null. Launches on `stream` and returns cudaGetLastError() after the
+// launch.
 EXPORT int flash_attention_fwd(
     int dtype, int hd, const void* q, const void* k, const void* v, void* o,
-    const int* q_pos, const int* k_pos, int B, int H, int KV, int Tq, int Tk,
-    int window, float scale,
+    float* lse, const int* q_pos, const int* k_pos, int B, int H, int KV,
+    int Tq, int Tk, int window, float scale,
     int64_t sq_b, int64_t sq_h, int64_t sq_t, int64_t sq_d,
     int64_t sk_b, int64_t sk_h, int64_t sk_t, int64_t sk_d,
     int64_t sv_b, int64_t sv_h, int64_t sv_t, int64_t sv_d,
@@ -745,11 +758,11 @@ EXPORT int flash_attention_fwd(
   const Strides sv{sv_b, sv_h, sv_t, sv_d}, so{so_b, so_h, so_t, so_d};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_hd<float>(hd, q, k, v, o, q_pos, k_pos, B, H, KV, Tq, Tk,
-                              window, scale, sq, sk, sv, so, st);
+    return dispatch_hd<float>(hd, q, k, v, o, lse, q_pos, k_pos, B, H, KV, Tq,
+                              Tk, window, scale, sq, sk, sv, so, st);
   if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, q_pos, k_pos, B, H, KV,
-                                      Tq, Tk, window, scale, sq, sk, sv, so,
-                                      st);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, q_pos, k_pos, B, H,
+                                      KV, Tq, Tk, window, scale, sq, sk, sv,
+                                      so, st);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's attention kernels, as inline
-// PTX: mbarriers, 16-byte cp.async copies, TMA tile loads, and warpgroup
+// PTX: mbarriers, 16-byte cp.async copies, TMA tile loads, warp-level
+// mma.sync products with their ldmatrix loads, and warpgroup
 // matrix multiplies (wgmma) with their shared-memory descriptors.
 #pragma once
 
@@ -97,6 +98,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ------------------------------------------------------------ mma.sync (sm_80+)
+
+// d (16x8, f32) += a (16x16, row) * b (16x8, col); bf16 in. Fragments (PTX
+// ISA), g = lane / 4, t = lane % 4: a regs (row g, k 2t..2t+1), (row g+8,
+// ..), (row g, k 2t+8..), (row g+8, k 2t+8..); b regs (k 2t..2t+1, col g),
+// (k 2t+8.., col g); d: (row g, col 2t, 2t+1), (row g+8, col 2t, 2t+1).
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
 // --------------------------------------------------------------------- wgmma

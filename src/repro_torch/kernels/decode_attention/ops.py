@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .._grad import ITEM_8B, refuse_grad
 from . import kernel
 from .ref import decode_attention_ref
 
@@ -19,7 +20,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (default 0..S-1); pos the current position (default S-1). Any
     strides: pass the model's [B,S,KV,hd] cache as a `.transpose(1, 2)`
     view. For a CUDA tensor this launches the kernel or raises; only a
-    CPU tensor takes the plain version."""
+    CPU tensor takes the plain version. It has no backward: on CUDA
+    it raises NotImplementedError when a gradient is asked of it."""
     S = k.shape[2]
     if k_pos is None:
         k_pos = torch.arange(S, dtype=torch.int32, device=q.device)
@@ -27,6 +29,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pos = S - 1
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, k_pos, pos)
+    refuse_grad("decode_attention", ITEM_8B, q, k, v)
     out = kernel.decode_attention(q, k, v, k_pos, pos)
     decode_attention.launches += 1
     return out

@@ -6,8 +6,9 @@ flash_attention` and is bound by operations at prefill lengths; bf16
 inputs stream through TMA into a shared-memory ring and run on the tensor
 cores (wgmma), f32 inputs run in IEEE f32 on the CUDA cores. This module
 checks the operands (TMA needs 16-byte-aligned bases and strides),
-allocates the output and launches the kernel on the current stream through
-its C entry point.
+allocates the output (and, for training, the per-row log-sum-exp the
+backward kernel reads) and launches the kernel on the current stream
+through its C entry point.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-             *([_L] * 16), _P]
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _F, *([_L] * 16), _P]
 
 
 @functools.cache
@@ -71,23 +72,28 @@ def _check(q, k, v, q_pos, k_pos):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, with_lse: bool = False):
     """q [B,H,Tq,hd]; k, v [B,KV,Tk,hd]; q_pos [Tq], k_pos [Tk] int32, all
     on one CUDA device, any strides with a unit last one. Returns
-    [B,H,Tq,hd] in q's dtype, laid out in memory like q."""
+    [B,H,Tq,hd] in q's dtype, laid out in memory like q; with `with_lse`,
+    (out, lse): lse [B,H,Tq] f32, each row's natural-log log-sum-exp of its
+    scaled logits, +inf for a row with no admissible key."""
     _check(q, k, v, q_pos, k_pos)
     B, H, Tq, hd = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     check_aligned("flash_attention", out=out)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         err = _entry()(
             DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(),
             B, H, KV, Tq, Tk, int(window), hd ** -0.5,
             *q.stride(), *k.stride(), *v.stride(), *out.stride(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return (out, lse) if with_lse else out

@@ -18,14 +18,20 @@ Public entry points:
     init_cache(cfg, B, max_len, device)
     prefill(params, cfg, tokens[, prefix], max_len)  # -> (last_logits, cache)
     decode_step(params, cfg, cache, tokens, pos)     # -> (logits, cache)
+    train_loss(params, cfg, batch)                   # -> mean next-token NLL
+
+Training runs a cache-free layer stack; with `cfg.remat` each layer (each
+super-block in the hybrid) is checkpointed, as the reference's
+`jax.checkpoint`, so its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
-from .layers import (attention_apply, decode_key_positions, mlp_apply,
-                     rms_norm)
+from .layers import (attention_apply, chunked_ce_loss, decode_key_positions,
+                     mlp_apply, rms_norm)
 from .mamba2 import mamba2_apply, mamba2_cache_init, mamba2_params
 from .moe import moe_apply, moe_params
 from .rwkv6 import rwkv6_apply, rwkv6_cache_init, rwkv6_params
@@ -248,6 +254,92 @@ def _run_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
+# ---------------------------------------------------------------------------
+# Training: the cache-free layer stack
+# ---------------------------------------------------------------------------
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The n layers' parameter dicts, from one `unbind(0)` of each stacked
+    leaf: their backward is one `stack`, where indexing layer by layer
+    would add each layer's gradient into a zero tensor the size of the
+    whole stack."""
+    cols = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _train_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
+                 use_kernels: bool) -> torch.Tensor:
+    """One layer with no cache: token mixer, then channel mixer."""
+    h = rms_norm(x, lp["ln1"])
+    if cfg.token_mixer == "attention":
+        out, _ = attention_apply(lp["attn"], cfg, h, None, 0,
+                                 use_kernels=use_kernels)
+    elif cfg.token_mixer == "mamba2":
+        out, _ = mamba2_apply(lp["mamba"], cfg, h, None, use_kernels)
+    else:
+        out, _ = rwkv6_apply(lp["rwkv"], cfg, h, None, use_kernels)
+    return _channel_mix(lp, cfg, x + out, use_kernels)
+
+
+def _train_super_block(group: list[dict], sa: dict, cfg: ModelConfig,
+                       x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+    """attn_every Mamba2 layers, then the shared attention block."""
+    for lp in group:
+        x = _train_layer(lp, cfg, x, use_kernels)
+    out, _ = attention_apply(sa["attn"], cfg, rms_norm(x, sa["ln"]), None, 0,
+                             use_kernels=use_kernels)
+    return x + out
+
+
+def _remat(fn, *args):
+    """fn(*args), checkpointed when autograd is recording."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _train_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                  use_kernels: bool) -> torch.Tensor:
+    """The layer stack without a cache, as the reference's
+    `_scan_layers(..., None, ...)`: with `cfg.remat` each layer (each
+    super-block of the hybrid; its tail layers are not) is recomputed in
+    the backward."""
+    run = _remat if cfg.remat else (lambda fn, *a: fn(*a))
+    if not cfg.attn_every:
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            x = run(_train_layer, lp, cfg, x, use_kernels)
+        return x
+    n_super, tail = _hybrid_shape(cfg)
+    E = cfg.attn_every
+    layers = _unstack(params["layers"], n_super * E)
+    for g in range(n_super):
+        x = run(_train_super_block, layers[g * E:(g + 1) * E],
+                params["shared_attn"], cfg, x, use_kernels)
+    for lp in (_unstack(params["tail"], tail) if tail else ()):
+        x = _train_layer(lp, cfg, x, use_kernels)
+    return x
+
+
+def check_trainable(cfg: ModelConfig, device: torch.device,
+                    use_kernels: bool = True) -> None:
+    """Raise for what `train_loss` cannot differentiate: int8 expert
+    weights anywhere (the reference's `jax.grad` refuses integer leaves
+    too), and on CUDA with the kernels, the recurrent mixers, whose scan
+    kernels have no backward yet (ROADMAP item 8b): they would otherwise
+    have to train through the plain scans."""
+    if cfg.moe_w8a8:
+        raise NotImplementedError(
+            f"{cfg.name} with moe_w8a8: int8 expert weights are not "
+            f"trainable")
+    if torch.device(device).type == "cuda" and use_kernels and (
+            cfg.token_mixer in ("mamba2", "rwkv6") or cfg.attn_every):
+        raise NotImplementedError(
+            f"{cfg.name}: training on CUDA needs the backward of the "
+            f"{cfg.token_mixer} scan kernel, which ROADMAP item 8b brings; "
+            f"train on the CPU, or pass use_kernels=False")
+
+
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            prefix: torch.Tensor | None) -> torch.Tensor:
     """Token embeddings [B, T, d], after the projected prefix when one is
@@ -299,3 +391,27 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     x = _embed(params, cfg, tokens, None)
     h = _run_layers(params, cfg, x, cache, int(pos), use_kernels)
     return _logits(params, cfg, h), cache
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               use_kernels: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy (f32 scalar). batch: tokens [B,S] (or
+    [B,S,nq]), targets the same shape, optional prefix [B,P,d_model]
+    whose rows are dropped before the loss; codebook configs average one
+    CE per codebook."""
+    tokens = batch["tokens"]
+    check_trainable(cfg, tokens.device, use_kernels)
+    prefix = batch.get("prefix")
+    x = _embed(params, cfg, tokens, prefix)
+    h = _train_layers(params, cfg, x, use_kernels)
+    h = rms_norm(h, params["final_norm"])
+    P = 0 if prefix is None else prefix.shape[1]
+    h = h[:, P:]
+    if cfg.n_codebooks:
+        heads = params["head"].unbind(0)
+        losses = [chunked_ce_loss(heads[q], h, batch["targets"][..., q],
+                                  cfg.loss_chunk)
+                  for q in range(cfg.n_codebooks)]
+        return torch.mean(torch.stack(losses))
+    return chunked_ce_loss(params["head"], h, batch["targets"],
+                           cfg.loss_chunk)

@@ -596,6 +596,162 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         rwkv6_wkv(*(t[..., :48] for t in (r, k, v, lw)), u[:, :48])
 
 
+# -- training: the forward's LSE, the backward kernel, the grad guards -----
+# The backward is held against its plain version (explicit formulas in f32)
+# on the same inputs: the kernel's own output o and LSE, and the same dO.
+# f32 at 2e-5 relative to the largest |want| (IEEE f32 on both sides, sums
+# over up to G * Tq terms in another order); bf16 rounds P and dS to bf16
+# as mma operands and the gradients to bf16: per row |got - want|_2 /
+# |want|_2 <= 2e-2. A row whose exact gradient vanishes (the first query's
+# dq: it sees key 0 alone, P = 1, dP - D = 0; all of dq at T = 1) has no
+# relative scale, so rows are measured against max(|want|_2, 1e-3 x the
+# mean row norm of the three gradients).
+
+BWD_ROW_REL = 2e-2
+
+
+def bwd_row_rel(got, want, wants):
+    """Largest |got - want|_2 / max(|want|_2, 1e-3 R) over the last axis's
+    rows, R the mean row norm over `wants` (dq, dk and dv together)."""
+    got, want = got.float(), want.float()
+    R = torch.cat([w.float().norm(dim=-1).flatten() for w in wants]).mean()
+    return ((got - want).norm(dim=-1)
+            / torch.maximum(want.norm(dim=-1), 1e-3 * R)).max().item()
+
+
+def _bwd_case(rng, B, H, KV, Tq, Tk, hd, dtype, dev, window=0, lost=False):
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    q = _model_layout(rng, B, Tq, H, hd, dtype, dev)
+    k = _model_layout(rng, B, Tk, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, Tk, KV, hd, dtype, dev)
+    do = _model_layout(rng, B, Tq, H, hd, dtype, dev)
+    q_pos = torch.arange(Tk - Tq, Tk, dtype=torch.int32, device=dev)
+    if lost:
+        q_pos[min(3, Tq - 1)] = -5          # precedes every key
+    k_pos = torch.arange(Tk, dtype=torch.int32, device=dev)
+    o, lse = fk.flash_attention(q, k, v, q_pos, k_pos, window, with_lse=True)
+    return q, k, v, o, lse, do, q_pos, k_pos
+
+
+def _assert_grad_matches(name, got, want, wants):
+    if got.dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        assert err <= 2e-5 * scale, f"{name}: {err:.3e} vs {scale:.3e}"
+        return
+    rel = bwd_row_rel(got, want, wants)
+    assert rel <= BWD_ROW_REL, f"{name}: row relative error {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,hd,window,lost", [
+    (2, 14, 2, 256, 256, 64, 0, False),     # qwen2-0.5b's GQA, G 7
+    (1, 14, 2, 999, 999, 64, 256, False),   # ragged, windowed
+    (2, 4, 1, 77, 333, 64, 50, True),       # Tq != Tk, a lost row
+    (1, 8, 1, 130, 515, 128, 0, True),
+    (2, 16, 2, 200, 200, 128, 8192, False),  # hd 128 at G 8, window >= T
+    (1, 2, 2, 1, 1, 64, 0, False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(dev, B, H, KV, Tq, Tk, hd, window,
+                                        lost, dtype):
+    from repro_torch.kernels.flash_attention.ref import lse_ref
+    from repro_torch.kernels.flash_attention_bwd.ops import \
+        flash_attention_bwd
+    from repro_torch.kernels.flash_attention_bwd.ref import \
+        flash_attention_bwd_ref
+
+    rng = np.random.default_rng(Tq * 3 + Tk + hd + window)
+    q, k, v, o, lse, do, q_pos, k_pos = _bwd_case(
+        rng, B, H, KV, Tq, Tk, hd, dtype, dev, window, lost)
+    want_lse = lse_ref(*_f32(q, k), q_pos, k_pos, window)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    tol = F32_TOL if dtype == torch.float32 else 1e-4
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, q_pos, k_pos, window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    want = flash_attention_bwd_ref(*_f32(q, k, v, o), lse, do.float(),
+                                   q_pos, k_pos, window)
+    for name, g, w, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == dtype and g.stride() == like.stride(), name
+        _assert_grad_matches(name, g, w, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic(dev, dtype):
+    """No float atomics: two launches give bit-identical gradients."""
+    from repro_torch.kernels.flash_attention_bwd.ops import \
+        flash_attention_bwd
+
+    rng = np.random.default_rng(5)
+    args = _bwd_case(rng, 2, 14, 2, 640, 640, 64, dtype, dev)
+    first = flash_attention_bwd(*args)
+    second = flash_attention_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_autograd_runs_both_kernels(dev, hd):
+    """Under autograd the op's forward writes the LSE and its backward
+    launches the backward kernel; the gradients equal the backward
+    kernel's on the forward's own o and LSE, and serving's forward (no
+    grad) is the same output."""
+    from repro_torch.kernels.flash_attention_bwd.ops import \
+        flash_attention_bwd
+
+    rng = np.random.default_rng(hd)
+    q, k, v, o, lse, do, q_pos, k_pos = _bwd_case(
+        rng, 2, 8, 2, 190, 190, hd, torch.bfloat16, dev, window=64)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, q_pos, k_pos, window=64)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == n_fwd + 1
+    assert flash_attention_bwd.launches == n_bwd + 1
+    assert torch.equal(out.detach(), o)
+    with torch.no_grad():
+        assert torch.equal(flash_attention(q, k, v, q_pos, k_pos, 64), o)
+    for g, w in zip(grads, flash_attention_bwd(q, k, v, o, lse, do, q_pos,
+                                               k_pos, 64)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_a_gradient(dev):
+    """decode_attention, ssm_scan, rwkv6_wkv and the int8 GEMM raise on
+    CUDA when a gradient is asked of their inputs, rather than dropping
+    it; attention's backward refuses head dims it lacks; with grad mode
+    off they run."""
+    rng = np.random.default_rng(3)
+    qd = torch.zeros(1, 2, 4, 64, device=dev, requires_grad=True)
+    kc = torch.zeros(1, 2, 16, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        decode_attention(qd, kc, kc)
+    with torch.no_grad():
+        decode_attention(qd, kc, kc)
+    x, Bm, Cm, dt, A, D, _ = _ssm_case(rng, 1, 16, 2, 32, 16,
+                                       torch.float32, dev)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        ssm_scan(x.requires_grad_(), Bm, Cm, dt, A, D)
+    r, k, v, lw, u, _ = _wkv_case(rng, 1, 16, 2, 64, torch.float32, dev)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        rwkv6_wkv(r, k, v, lw, u.requires_grad_())
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    a = torch.ones(2, 16, 32, dtype=torch.int8, device=dev)
+    b = torch.ones(2, 32, 16, dtype=torch.int8, device=dev)
+    assert int8_grouped_matmul(a, b).eq(32).all()   # int8 needs no grad
+    x112 = torch.zeros(1, 2, 8, 112, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="item 8b"):
+        flash_attention(x112, x112, x112)
+
+
 # -- the MoE and io configs' attention widths ------------------------------
 
 @pytest.mark.cuda
