@@ -85,8 +85,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      max|want|; bf16 per row at 2e-2, and within twice the plain bf16
      path's L2 distance to the exact f32 gradient; two launches bitwise
      equal) at qwen2-0.5b's training shape (B 8, H 14, KV 2, T 2048, hd
-     64), a ragged T with Tq != Tk and window 256, hd 128 at G 8 and a row
-     with no admissible key; one full-width 2-layer train step, kernels vs
+     64), a ragged T with Tq != Tk and window 256, hd 128 at G 8, a row
+     with no admissible key, zamba2-7b's hd 112 (B 2, H 32, KV 32, T 1024,
+     window 4096) and the smoke configs' hd 32 (B 4, H 4, KV 2, T 512);
+     one full-width 2-layer train step, kernels vs
      plain (f32: loss 1e-5, every gradient leaf 1e-4 relative L2; bf16:
      each leaf within twice the plain path's distance to the f32 gradient
      plus 1e-3); qwen2-0.5b whole in bf16 trains 20 steps of
@@ -94,8 +96,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      loss must fall by 0.2; 48 flash and 24 backward launches a step),
      step ms, tokens/s, peak memory and one profiled step; its step-10
      checkpoint restored bit for bit and 3 steps from it against 3 from
-     the live state; the backward's time beside its bound, its plain
-     version and SDPA's backward, and the forward with and without LSE.
+     the live state; the backward's time at the training shape, hd 112
+     and hd 32, each beside its bound, its plain version and SDPA's
+     backward, and the forward with and without LSE.
 
 Phases 8, 9, 10 and 11 print their numbers as JSON lines {"risk": ...},
 {"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...} and
@@ -1912,6 +1915,21 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
 BWD_F32_REL, BWD_BF16_ROW_REL = 2e-5, 2e-2
 STEP_F32_REL_L2 = 1e-4      # 2-layer train step, every gradient leaf
 TRAIN_PATH = f"{ARCH} train ({TRAIN_STEPS} steps)"
+# The backward's device ms before its Hopper redesign (the mma.sync
+# kernel, which took hd 64 and 128 only; copied from PERF.md), printed
+# beside this run's time and never put in the JSON line.
+BWD_BEFORE_MS = {"train": 2.6440}
+# The attention backward's checks: (label, B, H, KV, Tq, Tk, hd, window, a
+# row with no admissible key). "train" is qwen2-0.5b's training shape;
+# "hd112" zamba2-7b's shared attention (G 1, window 4096); "hd32" the
+# smoke configs' width. Those three are also timed.
+BWD_CASES = [("train", TRAIN_B, 14, 2, TRAIN_T, TRAIN_T, 64, 0, False),
+             ("ragged", 4, 14, 2, 777, 999, 64, 256, False),
+             ("hd128", 2, 64, 8, 1024, 1024, 128, 8192, False),
+             ("lost-row", 2, 4, 1, 130, 515, 64, 50, True),
+             ("hd112", 2, 32, 32, 1024, 1024, 112, 4096, False),
+             ("hd32", 4, 4, 2, 512, 512, 32, 0, False)]
+BWD_TIMED = ("train", "hd112", "hd32")
 
 
 def bwd_row_rel(got, want, wants) -> float:
@@ -1949,7 +1967,7 @@ def check_attention_bwd(dev, seed):
     and the kernel's own o and LSE); in bf16 also the whole gradients'
     relative L2 distance to the exact f32 gradient (the f32 forward's o
     and LSE), at most twice the plain bf16 path's. Returns the worst
-    errors and the bf16 inputs at the training shape."""
+    errors and the bf16 inputs of the BWD_TIMED cases."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
     from repro_torch.kernels.flash_attention_bwd import kernel as bk
@@ -1957,15 +1975,10 @@ def check_attention_bwd(dev, seed):
         flash_attention_bwd_ref
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    # (label, B, H, KV, Tq, Tk, hd, window, a row with no admissible key)
-    cases = [("train", TRAIN_B, 14, 2, TRAIN_T, TRAIN_T, 64, 0, False),
-             ("ragged", 4, 14, 2, 777, 999, 64, 256, False),
-             ("hd128", 2, 64, 8, 1024, 1024, 128, 8192, False),
-             ("lost-row", 2, 4, 1, 130, 515, 64, 50, True)]
     errs = dict(lse=0.0, f32=0.0, bf16=0.0, bf16_abs=0.0,
                 bf16_over_plain=0.0)
-    main = None
-    for label, B, H, KV, Tq, Tk, hd, window, lost in cases:
+    timed = {}
+    for label, B, H, KV, Tq, Tk, hd, window, lost in BWD_CASES:
         q_pos = torch.arange(Tk - Tq, Tk, dtype=torch.int32, device=dev)
         if lost:
             q_pos[3] = -5
@@ -2033,12 +2046,12 @@ def check_attention_bwd(dev, seed):
                       f"{'ok' if ok else 'MISMATCH'}", flush=True)
                 if not ok:
                     fail(f"flash_attention_bwd {tag} {name} disagrees")
-            if label == "train":
-                main = (q, k, v, o, lse, do, q_pos, k_pos)
+            if label in BWD_TIMED:
+                timed[label] = (q, k, v, o, lse, do, q_pos, k_pos, window)
             del plain, exact, o32
         del base, want, got
         torch.cuda.empty_cache()
-    return errs, main
+    return errs, timed
 
 
 def _grads(params, cfg, batch, use_kernels):
@@ -2267,51 +2280,73 @@ def train_on_card(dev, seed, ckpt_dir):
     return result
 
 
-def time_attention_bwd(main):
-    """Phase 11.5: the backward kernel at the training shape beside its
+def admitted_pairs(q_pos, k_pos, window) -> int:
+    """(query, key) pairs the causal/window bound admits."""
+    ok = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return int(ok.sum().item())
+
+
+def time_attention_bwd(timed):
+    """Phase 11.5: the backward kernel at each BWD_TIMED shape beside its
     bound, its plain version and SDPA's backward (through autograd, a
-    yardstick the port never calls); the forward with and without its
-    LSE output."""
+    yardstick the port never calls); at the training shape also the
+    forward with and without its LSE output. Returns the training
+    shape's numbers with every shape's under "by_shape"."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention_bwd import kernel as bk
     from repro_torch.kernels.flash_attention_bwd.ref import \
         flash_attention_bwd_ref
 
-    q, k, v, o, lse, do, q_pos, k_pos = main
-    B, H, T, hd = q.shape
-    sets = [(q, k, v, o, lse, do)] + [
-        tuple(t.clone(memory_format=torch.preserve_format)
-              for t in (q, k, v, o, lse, do)) for _ in range(2)]
-    ms, eager = time_ms([lambda a=a: bk.flash_attention_bwd(*a, q_pos, k_pos)
-                         for a in sets], n=24)
-    pairs = T * (T + 1) // 2
-    # Read q, o, dO, k, v, lse and the positions once; write dq, dk, dv.
-    n_bytes = (q.element_size() * (4 * q.numel() + 2 * k.numel()
-                                   + 2 * v.numel())
-               + 4 * lse.numel() + 4 * 2 * T)
-    b, by = bound(n_bytes, 5 * 2.0 * pairs * hd * B * H)
-    plain = _event_ms(lambda: flash_attention_bwd_ref(
-        q, k, v, o, lse, do, q_pos, k_pos), 2)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                         enable_gqa=True)
-    lib = _event_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                retain_graph=True), 10)
-    del out, leaves
-    fwd = {}
-    for with_lse in (False, True):
-        fwd[with_lse] = time_ms([lambda a=a, w=with_lse: fk.flash_attention(
-            *a[:3], q_pos, k_pos, 0, with_lse=w) for a in sets])[0]
-    row = dict(ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
-               bound_by=by, library_ms=lib,
-               shape=f"B={B} H={H} KV={k.shape[1]} T={T} hd={hd} bfloat16 "
-                     f"causal",
-               fwd_ms=fwd[False], fwd_with_lse_ms=fwd[True])
-    print(f"  flash_attention_bwd [{row['shape']}]: {ms:.4f} ms (eager "
-          f"{eager:.4f}), bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% of "
-          f"it), plain {plain:.2f} ms, SDPA backward {lib:.4f} ms; forward "
-          f"{fwd[False]:.4f} ms, with LSE {fwd[True]:.4f} ms", flush=True)
-    return row
+    rows = {}
+    for label, (q, k, v, o, lse, do, q_pos, k_pos, window) in timed.items():
+        B, H, T, hd = q.shape
+        sets = [(q, k, v, o, lse, do)] + [
+            tuple(t.clone(memory_format=torch.preserve_format)
+                  for t in (q, k, v, o, lse, do)) for _ in range(2)]
+        ms, eager = time_ms([lambda a=a: bk.flash_attention_bwd(
+            *a, q_pos, k_pos, window) for a in sets], n=24)
+        pairs = admitted_pairs(q_pos, k_pos, window)
+        # Read q, o, dO, k, v, lse and the positions once; write dq, dk, dv.
+        n_bytes = (q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                       + 2 * v.numel())
+                   + 4 * lse.numel() + 4 * 2 * T)
+        b, by = bound(n_bytes, 5 * 2.0 * pairs * hd * B * H)
+        plain = _event_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, o, lse, do, q_pos, k_pos, window), 2)
+        # SDPA's causal mask is the bound here (window 0 or >= T).
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        lib = _event_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                    retain_graph=True), 10)
+        del out, leaves
+        row = dict(ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
+                   bound_by=by, library_ms=lib,
+                   shape=f"B={B} H={H} KV={k.shape[1]} T={T} hd={hd} "
+                         f"bfloat16 causal"
+                         + (f" window={window}" if window else ""))
+        line = (f"  flash_attention_bwd [{row['shape']}]: {ms:.4f} ms "
+                f"(eager {eager:.4f}; before the redesign, from PERF.md: "
+                f"{BWD_BEFORE_MS.get(label, 'n/a')}), bound {b:.4f} ms ({by}; "
+                f"{100 * b / ms:.1f}% of it), "
+                f"plain {plain:.2f} ms, SDPA backward {lib:.4f} ms")
+        if label == "train":
+            for with_lse in (False, True):
+                row["fwd_with_lse_ms" if with_lse else "fwd_ms"] = time_ms(
+                    [lambda a=a, w=with_lse: fk.flash_attention(
+                        *a[:3], q_pos, k_pos, 0, with_lse=w) for a in sets])[0]
+            line += (f"; forward {row['fwd_ms']:.4f} ms, with LSE "
+                     f"{row['fwd_with_lse_ms']:.4f} ms")
+        print(line, flush=True)
+        rows[label] = row
+        del sets
+    main = dict(rows["train"])
+    main["by_shape"] = [{k: v for k, v in r.items()
+                         if k not in ("fwd_ms", "fwd_with_lse_ms")}
+                        for r in rows.values()]
+    return main
 
 
 def train_and_check(dev=None, seed: int = 0) -> dict:
@@ -2324,15 +2359,15 @@ def train_and_check(dev=None, seed: int = 0) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase("11. train: the attention backward vs its plain version")
-    errs, main = check_attention_bwd(dev, seed)
+    errs, timed_inputs = check_attention_bwd(dev, seed)
     phase("11. train: a 2-layer full-width train step, kernels vs plain")
     step = check_train_step(dev, seed)
     phase(f"11. train {ARCH} on the card")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
         run = train_on_card(dev, seed, ckpt)
     phase("11. train: kernel times")
-    timed = time_attention_bwd(main)
-    del main
+    timed = time_attention_bwd(timed_inputs)
+    del timed_inputs
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
     print(f"  phase 11 took {wall:.1f}s", flush=True)

@@ -22,34 +22,73 @@
 // per head over the admitted (query, key) pairs, against reading q, k, v, o,
 // dO once and writing dq, dk, dv once: at training lengths (T 2048) ~T/2
 // operations per byte, far above the ~295 FLOP/byte ridge, so bf16 is bound
-// by the tensor cores' 989 TFLOP/s.
+// by the tensor cores' 989 TFLOP/s. This design runs seven (S and dP are
+// computed twice, see the dQ items below), so its own bound is 7/5 of that.
 //
-// Design (simple and deterministic; no float atomics anywhere, so two runs
-// give bit-identical gradients):
-//  1. bwd_prep_kernel: D = rowsum(dO * O) in f32 per query row; per 32-row
-//     query tile whether a row of it is lost (LSE +inf), per (b, h); per
-//     32-row query tile and 64-key tile the min and max position, which the
-//     two main kernels read to skip tiles whose every pair is masked.
-//  2. dK/dV: one block per (64-key tile, KV head, b), 4 warps of 16 keys.
-//     It loops over the G query heads and the query tiles the causal/window
-//     bound admits (a tile with a lost row is always admitted), recomputes
-//     S^T = K Q^T and dP^T = V dO^T, forms P^T and dS^T in registers and
-//     accumulates dV += P^T dO and dK += dS^T Q in registers; dK and dV are
-//     written once. GQA therefore needs no atomics.
-//  3. dQ: one block per (64-row query tile, head, b), 4 warps of 16 rows,
-//     looping over the admitted 64-key tiles: S = Q K^T, dP = dO V^T, dS,
-//     dQ += dS K; written once.
-//  bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate) with ldmatrix
-//  fragments; the block's own tile (K and V, or Q and dO) is loaded once,
-//  the streamed tiles are double-buffered by 16-byte cp.async (zero-filled
-//  past the ragged end); P and dS are rounded to bf16 as mma operands, as
-//  the forward rounds P. Rows of shared tiles are padded by 16 bytes, so the
-//  8 rows an ldmatrix reads hit distinct banks.
+// Design (deterministic: no float atomics anywhere, every gradient element
+// is summed by one thread in a fixed order, so two runs are bit-identical).
+// Two launches:
+//  1. bwd_prep_kernel: D = rowsum(dO * O) in f32 per query row, from the
+//     bf16 O (16-byte loads, a lane group per row); per 32-row query chunk
+//     whether a row of it is lost (LSE +inf), per (b, h); the min and max
+//     position of each 32-row query chunk and each 64-key chunk, which the
+//     main kernel reads to skip tiles whose every pair is masked.
+//  2. bwd_wgmma_kernel (bf16): one list of work items, dK/dV items first,
+//     then dQ items, each list longest first; one block per item.
+//   - A dK/dV item is (128-key tile, KV head, b). It streams (query tile,
+//     head of the group) items, query tiles outer, and keeps dK and dV of
+//     its keys in registers over all G heads, so GQA needs neither atomics
+//     nor a workspace. S^T = K Q^T and dP^T = V dO^T are wgmma products
+//     with both operands in shared memory (K-major); P^T = exp(S^T - lse)
+//     and dS^T = P^T (dP^T - D) are formed in registers and rounded to bf16
+//     as wgmma's A operand (as the forward rounds P); dV += P^T dO and dK +=
+//     dS^T Q read dO and Q in their row layout through the transposed-B
+//     mode.
+//   - A dQ item is (128-row query tile, head, b), streaming the admitted key
+//     tiles: S = Q K^T and dP = dO V^T again (shared x shared), dS in
+//     registers, dQ += dS K (transposed-B). The recomputation (7 products,
+//     not 5) keeps dQ out of float atomics.
+//   Both are warp-specialised like the forward: warpgroup 0 is a producer
+//   whose one warp issues TMA loads (tensor maps over the strided [B,
+//   heads, T, hd] views, 128-byte swizzle, rows past T zero-filled) into a
+//   ring of 3 stages guarded by full/empty mbarriers, and writes each
+//   stage's per-row values (lse * log2 e, D and positions for dK/dV; key
+//   positions for dQ) beside it; it tests 32 tiles at a time for admission
+//   (one lane each, from the prep's ranges, a ballot) and flags the tiles
+//   that straddle the diagonal, the window edge, a ragged end or a lost
+//   row: only those get per-element masks. Warpgroups 1 and 2 consume, 64
+//   keys (dK/dV) or 64 query rows (dQ) each, with setmaxnreg 240 / 24
+//   between consumers and producer. Accumulators are f32 in registers. The
+//   elementwise part is branch-free (a masked tile and an unmasked one
+//   each have their own loop), so the exponentials of many elements
+//   overlap; a branch per element pair would serialise them.
+//  Head dims: the forward's 32, 64, 112, 128, held as 64-column (128-byte)
+//  swizzle blocks zero-padded in shared memory (hd 32 to 64, hd 112 to 128).
+//  The products that contract over hd (S, dP) run only the real 16-deep
+//  steps; the ones whose output columns are hd (dV, dK, dQ) run whole
+//  padded widths: at hd 112, 16 of 128 columns (12.5 % of 3 of the 7
+//  products) fall on zeros, at hd 32 half of them. Streamed tiles are 128
+//  rows at a padded hd of 64 and 64 rows at 128, which keeps a consumer's
+//  accumulators at 192 f32 registers (dK, dV: hd_p / 2 each; S^T, dP^T:
+//  rows / 2 each). ptxas -v (printed by chip_smoke.py phase 2) reports no
+//  spills in any instantiation at 240 consumer registers; at 232 the hd
+//  128 one spilled 12 bytes.
+//  Balance: each part of the list runs longest first (block index order:
+//  key tile 0, which sees every causal query tile, first), so the block
+//  scheduler, which hands the next block to the first SM that frees, does
+//  list scheduling, and the short dQ items fill the SMs the long dK/dV
+//  ones leave idle at the end. At the training shape (B 8, H 14, KV 2,
+//  T 2048) the dK/dV part is 256 blocks; the block of key tile j walks
+//  7 (16 - j) tile steps (112 down to 7), 15,232 in all, 115.4 per SM over
+//  132 SMs; list scheduling longest first ends after 121 step-times
+//  counting one step of set-up per block (tools/bwd_schedule.py); the
+//  earlier mma.sync design's grid (one block per 64-key tile, key tile
+//  fastest in index order) ends after 147.5 of the same step-times.
 //  f32: scalar IEEE f32 FMAs on the CUDA cores (no TF32: the f32 checks hold
 //  it at 2e-5), 16 x 16 threads over 64 x 32 tiles; it exists for the tight
 //  checks, not for speed.
-// Head dims 64 and 128. Operands are read through their strides (unit last
-// stride; the bf16 path needs 16-byte-aligned bases and strides).
+// Operands are read through their strides (unit last stride; the bf16 path
+// needs 16-byte-aligned bases and strides, which TMA requires).
 
 #include <climits>
 #include <math.h>
@@ -57,12 +96,12 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tma.cuh"
 
 namespace {
 
 constexpr int PREP_ROWS = 32;   // query rows per prep block and per lost flag
-constexpr int KT = 64;          // keys per tile (dK/dV blocks, dQ's tiles)
-constexpr int QT = 64;          // query rows per dQ block
+constexpr int KCH = 64;         // keys per position-range chunk
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Position range [lo, hi] of a tile, INT_MAX / INT_MIN when it is empty.
@@ -79,15 +118,33 @@ __device__ __forceinline__ bool admits(Range q, Range k, int window) {
   return true;
 }
 
+// Whether every (query, key) pair of the two ranges is admissible.
+__device__ __forceinline__ bool all_admitted(Range q, Range k, int window) {
+  return q.lo <= q.hi && k.lo <= k.hi && k.hi <= q.lo &&
+         (window <= 0 || (long long)k.lo > (long long)q.hi - window);
+}
+
 __device__ __forceinline__ bool admissible(int kp, int qp, int window) {
   return kp <= qp && (window <= 0 || kp > qp - window);
 }
 
+// Union of the ranges of chunks [c0, c1) (clipped to n) of a prep range
+// array laid out lo, hi, lo, hi, ...
+__device__ __forceinline__ Range chunk_range(const int* ranges, int c0,
+                                             int c1, int n) {
+  Range r{INT_MAX, INT_MIN};
+  for (int c = c0; c < c1 && c < n; ++c) {
+    r.lo = min(r.lo, ranges[2 * c]);
+    r.hi = max(r.hi, ranges[2 * c + 1]);
+  }
+  return r;
+}
+
 // ------------------------------------------------------------------- prep
 
-// grid (max(#32-row query tiles, #64-key tiles), H, B), 256 threads: D and
-// the lost flags of 32 query rows of (b, h); blocks of (h, b) = (0, 0) also
-// record the position ranges of query tile x and key tile x.
+// grid (max(#32-row query chunks, #64-key chunks), H, B), 256 threads: D
+// and the lost flags of 32 query rows of (b, h); blocks of (h, b) = (0, 0)
+// also record the position ranges of query chunk x and key chunk x.
 template <typename T, int HD>
 __global__ void __launch_bounds__(256) bwd_prep_kernel(
     const T* __restrict__ o, const T* __restrict__ dout,
@@ -99,7 +156,7 @@ __global__ void __launch_bounds__(256) bwd_prep_kernel(
   const int x = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_qt = (Tq + PREP_ROWS - 1) / PREP_ROWS;
-  const int n_kt = (Tk + KT - 1) / KT;
+  const int n_kt = (Tk + KCH - 1) / KCH;
   if (h == 0 && b == 0 && warp == 0) {
     if (x < n_qt) {
       const int r = x * PREP_ROWS + lane;
@@ -114,8 +171,8 @@ __global__ void __launch_bounds__(256) bwd_prep_kernel(
     }
     if (x < n_kt) {
       int lo = INT_MAX, hi = INT_MIN;
-      for (int j = lane; j < KT; j += 32) {
-        const int kk = x * KT + j;
+      for (int j = lane; j < KCH; j += 32) {
+        const int kk = x * KCH + j;
         if (kk < Tk) {
           lo = min(lo, k_pos[kk]);
           hi = max(hi, k_pos[kk]);
@@ -132,409 +189,589 @@ __global__ void __launch_bounds__(256) bwd_prep_kernel(
   if (x >= n_qt) return;       // uniform per block
   const int64_t bh = (int64_t)b * H + h;
   int my_lost = 0;
-  // 8 warps x 4 rows; lanes over the head dim.
-  for (int rr = 0; rr < PREP_ROWS / 8; ++rr) {
-    const int r = x * PREP_ROWS + warp * (PREP_ROWS / 8) + rr;
-    if (r >= Tq) break;
-    const T* orow = o + b * so.b + h * so.h + r * so.t;
-    const T* drow = dout + b * sdo.b + h * sdo.h + r * sdo.t;
-    float acc = 0.f;
+  if constexpr (sizeof(T) == 4) {
+    // f32: 8 warps x 4 rows, lanes over the head dim: the order the f32
+    // checks were set against (a row that sees one key has dP - D at the
+    // f32 noise level, held to the plain version's).
+    for (int rr = 0; rr < PREP_ROWS / 8; ++rr) {
+      const int r = x * PREP_ROWS + warp * (PREP_ROWS / 8) + rr;
+      if (r >= Tq) break;
+      const T* orow = o + b * so.b + h * so.h + r * so.t;
+      const T* drow = dout + b * sdo.b + h * sdo.h + r * sdo.t;
+      float acc = 0.f;
 #pragma unroll
-    for (int d = lane; d < HD; d += 32)
-      acc = fmaf(to_float(orow[d]), to_float(drow[d]), acc);
+      for (int d = lane; d < HD; d += 32)
+        acc = fmaf(to_float(orow[d]), to_float(drow[d]), acc);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      Dsum[bh * Tq + r] = acc;
-      if (isinf(lse[bh * Tq + r])) my_lost = 1;
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) {
+        Dsum[bh * Tq + r] = acc;
+        if (isinf(lse[bh * Tq + r])) my_lost = 1;
+      }
+    }
+  } else {
+    // bf16: 8 warps x 4 rows. A row's 16-byte chunks go to a group of GS
+    // lanes (the power of two that holds them), so a warp reads 32 / GS
+    // rows at once.
+    constexpr int VEC = 8, CH = HD / VEC;
+    constexpr int GS = CH > 8 ? 16 : CH > 4 ? 8 : 4;
+    constexpr int RW = PREP_ROWS / 8, RI = 32 / GS;
+    const int c = lane % GS;
+#pragma unroll
+    for (int it = 0; it < (RW + RI - 1) / RI; ++it) {
+      const int rr = it * RI + lane / GS;
+      const int r = x * PREP_ROWS + warp * RW + rr;
+      const bool in = rr < RW && r < Tq;
+      float acc = 0.f;
+      if (in && c < CH) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(
+            o + b * so.b + h * so.h + r * so.t + c * VEC);
+        const uint4 dv = *reinterpret_cast<const uint4*>(
+            dout + b * sdo.b + h * sdo.h + r * sdo.t + c * VEC);
+        const T* oe = reinterpret_cast<const T*>(&ov);
+        const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc = fmaf(to_float(oe[e]), to_float(de[e]), acc);
+      }
+#pragma unroll
+      for (int off = GS / 2; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (in && c == 0) {
+        Dsum[bh * Tq + r] = acc;
+        if (isinf(lse[bh * Tq + r])) my_lost = 1;
+      }
     }
   }
   const int any_lost = __syncthreads_or(my_lost);
   if (tid == 0) lost[bh * n_qt + x] = any_lost;
 }
 
-// Position range of query rows [r0, r0 + n) from the 32-row prep ranges
-// (r0 and n multiples of 32), and whether a row of them is lost in head bh.
-__device__ __forceinline__ Range q_tiles(const int* qrange, const int* lost,
-                                         int64_t bh, int n_qt32, int r0,
-                                         int n, bool* any_lost) {
-  Range q{INT_MAX, INT_MIN};
-  bool l = false;
-  for (int x = r0 / PREP_ROWS; x < (r0 + n) / PREP_ROWS && x < n_qt32; ++x) {
-    q.lo = min(q.lo, qrange[2 * x]);
-    q.hi = max(q.hi, qrange[2 * x + 1]);
-    l |= lost[bh * n_qt32 + x] != 0;
-  }
-  *any_lost = l;
-  return q;
-}
-
 // ------------------------------------------------------------ bf16 kernels
+
+constexpr int WNT = 384;        // producer warpgroup + two consumer warpgroups
+constexpr int SW = 128;         // bytes per swizzled row (64 bf16)
+constexpr int OWN = 128;        // keys of a dK/dV block; query rows of a dQ one
+constexpr int STAGES = 3;       // ring stages
+constexpr int MAX_BS = 128;     // most rows of a streamed tile
 
 template <int HD>
 struct BCfg {
-  static constexpr int LD = HD + 8;            // padded shared row (bf16)
-  static constexpr int C = HD / 8;             // 16-byte chunks per row
-  static constexpr int KS = HD / 16;           // 16-deep steps over hd
-  static constexpr int NO = HD / 8;            // 8-column tiles over hd
-  // dK/dV: query rows per streamed tile (register budget: dK and dV take
-  // HD / 2 registers each per thread, S^T and dP^T BQ / 2 each).
-  static constexpr int BQ = HD > 64 ? 32 : 64;
-  static constexpr int KV_SMEM =
-      2 * KT * LD * 2                          // K, V tiles of the block
-      + 2 * 2 * BQ * LD * 2                    // Q, dO: two stages each
-      + 2 * BQ * (4 + 4 + 4);                  // lse, D, q_pos per stage
-  static constexpr int Q_SMEM =
-      2 * QT * LD * 2                          // Q, dO of the block
-      + 2 * 2 * KT * LD * 2                    // K, V: two stages each
-      + 2 * KT * 4;                            // k_pos per stage
+  static constexpr int HDP = HD <= 64 ? 64 : 128;   // padded head dim
+  static constexpr int NCB = HDP / 64;              // 64-column blocks
+  static constexpr int KS = HD / 16;                // real 16-deep steps
+  static constexpr int BS = HDP == 64 ? 128 : 64;   // rows of a streamed tile
+  static constexpr int OWN_CB = OWN * SW;           // bytes of one own block
+  static constexpr int STR_CB = BS * SW;            // ... of a streamed one
+  static constexpr int OWN_BYTES = NCB * OWN_CB;    // one own tile
+  static constexpr int STR_BYTES = NCB * STR_CB;    // one streamed tile
+  static constexpr int OFF_RING = 2 * OWN_BYTES;    // stage s: 2 tiles
+  static constexpr int SMEM =
+      OFF_RING + STAGES * 2 * STR_BYTES + 1024;     // + alignment slack
 };
 
-// Rows [r0, r0 + rows) of a strided [T, HD] bf16 matrix into a padded
-// shared tile by 16-byte cp.async, rows past T zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t st, int r0, int rows, int T,
-                                          int tid, int nthreads) {
-  using Cf = BCfg<HD>;
-  for (int idx = tid; idx < rows * Cf::C; idx += nthreads) {
-    const int r = idx / Cf::C, c = idx % Cf::C;
-    const bool in = r0 + r < T;
-    const int64_t row = in ? (int64_t)(r0 + r) : 0;
-    cp_async16(dst + r * Cf::LD + c * 8, src + row * st + c * 8, in ? 16 : 0);
-  }
+struct BShared {                // the small, statically allocated part
+  uint64_t full[STAGES], empty[STAGES], own_full;
+  int tile[STAGES];             // streamed item, -1 marks the end
+  int masked[STAGES];           // 1: the tile needs per-element masks
+  float lse2[STAGES][MAX_BS];   // dK/dV: lse * log2 e per query (inf: lost)
+  float dsum[STAGES][MAX_BS];   // dK/dV: D per query
+  int pos[STAGES][MAX_BS];      // dK/dV: query positions; dQ: key positions
+};
+
+// The tensor maps of one backward call: Q and dO with boxes of a streamed
+// tile's rows (dK/dV) and of OWN rows (dQ), K and V the other way round.
+struct BwdMaps {
+  CUtensorMap q_str, do_str, k_own, v_own, q_own, do_own, k_str, v_str;
+};
+
+struct BwdArgs {
+  const float* lse;
+  const float* Dsum;
+  const int *lost, *qrange, *krange, *q_pos, *k_pos;
+  __nv_bfloat16 *dq, *dk, *dv;
+  int B, H, KV, Tq, Tk, window, n_kv;
+  float scale;
+  Strides sdq, sdk, sdv;
+};
+
+// wgmma by the width N of its output.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_ss_m64n64(d, da, db, scale_d);
+  else wgmma_ss_m64n128(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_rs_m64n64_tb(d, a, db, scale_d);
+  else wgmma_rs_m64n128_tb(d, a, db, scale_d);
 }
 
-// The (16 x n) product of the warp's 16 rows of A (shared, rows at `a`)
-// with the n rows of B (shared, at `b`), both [rows][HD] row-major: acc
-// [n/8][4] (+)= A B^T, in the mma accumulator layout.
+// acc (64 x N) = A B^T over the first 16 * KS columns: A 64 rows of a
+// swizzled own tile (a0: their first block), B the rows of a streamed tile
+// (b0); blocks of 64 columns a_cb / b_cb bytes apart.
 template <int HD, int N>
-__device__ __forceinline__ void mma_abt(float (*acc)[4],
-                                        const __nv_bfloat16* a,
-                                        const __nv_bfloat16* b, int lane) {
-  using Cf = BCfg<HD>;
+__device__ __forceinline__ void product_abt(float* acc, uint32_t a0, int a_cb,
+                                            uint32_t b0, int b_cb) {
 #pragma unroll
-  for (int kk = 0; kk < Cf::KS; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + ((lane & 7) + ((lane >> 3) & 1) * 8) * Cf::LD +
-                        16 * kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b + (16 * np + ((lane >> 4) & 1) * 8 + (lane & 7)) *
-                              Cf::LD +
-                          16 * kk + ((lane >> 3) & 1) * 8);
-      mma_16816(acc[2 * np], af, bf[0], bf[1]);
-      mma_16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
+  for (int kk = 0; kk < BCfg<HD>::KS; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss<N>(acc, sw128_desc(a0 + (kk >> 2) * a_cb + off, 16, 1024),
+                sw128_desc(b0 + (kk >> 2) * b_cb + off, 16, 1024), kk > 0);
   }
 }
 
-// acc [HD/8][4] += X (16 x n, registers: x[n/8][4] in the accumulator
-// layout, rounded to bf16) times the n rows of B (shared, [n][HD]).
-template <int HD, int N>
-__device__ __forceinline__ void mma_xb(float (*acc)[4], const float (*x)[4],
-                                       const __nv_bfloat16* b, int lane) {
-  using Cf = BCfg<HD>;
+// acc (64 x hd_p) += X B: X (64 x 16 * K16, bf16 pairs in registers in
+// wgmma's A layout) times the 16 * K16 rows of a swizzled tile at b0
+// (blocks of 64 columns b_cb bytes apart) in its row layout.
+template <int HD, int K16>
+__device__ __forceinline__ void product_xb(float* acc,
+                                           const uint32_t (*x)[4],
+                                           uint32_t b0, int b_cb) {
+  constexpr int HDP = BCfg<HD>::HDP;
 #pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc) {
-    const uint32_t xa[4] = {pack_bf16x2(x[2 * kc][0], x[2 * kc][1]),
-                            pack_bf16x2(x[2 * kc][2], x[2 * kc][3]),
-                            pack_bf16x2(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                            pack_bf16x2(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-#pragma unroll
-    for (int np = 0; np < Cf::NO / 2; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b + (16 * kc + ((lane >> 3) & 1) * 8 +
-                                 (lane & 7)) * Cf::LD +
-                                16 * np + (lane >> 4) * 8);
-      mma_16816(acc[2 * np], xa, bf[0], bf[1]);
-      mma_16816(acc[2 * np + 1], xa, bf[2], bf[3]);
-    }
-  }
+  for (int kc = 0; kc < K16; ++kc)
+    wgmma_rs_tb<HDP>(acc, x[kc], sw128_desc(b0 + kc * 2048, b_cb, 1024), 1);
 }
 
-// Store a warp's 16 x HD accumulator (rows r0.., scaled) as bf16 into a
-// strided [T, HD] matrix; rows past T are dropped.
+// Store a consumer's 64 x hd accumulator (rows row0.., scaled) as bf16 into
+// a strided [T, hd] matrix; rows past T and padded columns are dropped.
 template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int64_t st,
-                                           const float (*acc)[4], float scale,
-                                           int r0, int T, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, int64_t st,
+                                           const float* acc, float scale,
+                                           int row0, int T, int lane) {
+  const int t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + g + 8 * i;
-      if (r < T)
-        *reinterpret_cast<uint32_t*>(dst + r * st + 8 * n + 2 * t) =
-            pack_bf16x2(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
-    }
+  for (int x = 0; x < BCfg<HD>::HDP / 2; x += 2) {
+    const int row = row0 + 8 * ((x >> 1) & 1);
+    const int col = 8 * (x >> 2) + 2 * t;
+    if (col < HD && row < T)
+      *reinterpret_cast<uint32_t*>(dst + row * st + col) =
+          pack_bf16x2(acc[x] * scale, acc[x + 1] * scale);
+  }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(128) bwd_dkdv_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ Dsum, const int* __restrict__ lost,
-    const int* __restrict__ qrange, const int* __restrict__ krange,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
-    int Tk, int G, int window, float scale, Strides sq, Strides sk,
-    Strides sv, Strides sdo, Strides sdk, Strides sdv) {
-  using Cf = BCfg<HD>;
-  using bf16 = __nv_bfloat16;
-  constexpr int BQ = Cf::BQ, LD = Cf::LD, NS = BQ / 8, NO = Cf::NO;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + KT * LD;
-  bf16* Qs = Vs + KT * LD;                  // [2][BQ][LD]
-  bf16* Ds = Qs + 2 * BQ * LD;              // dO: [2][BQ][LD]
-  float* lse_s = reinterpret_cast<float*>(Ds + 2 * BQ * LD);   // [2][BQ]
-  float* D_s = lse_s + 2 * BQ;                                  // [2][BQ]
-  int* qp_s = reinterpret_cast<int*>(D_s + 2 * BQ);             // [2][BQ]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int H = gridDim.y * G, k0 = kt * KT;
-  const int n_qt32 = (Tq + PREP_ROWS - 1) / PREP_ROWS;
-  const int n_qt = (Tq + BQ - 1) / BQ;
-  const Range kr{krange[2 * kt], krange[2 * kt + 1]};
-  const float scale_log2 = scale * kLog2e, inv_tk = 1.f / (float)Tk;
-
-  // This warp's 16 keys: positions (rows g and g + 8), validity.
-  int kp[2];
-  bool kin[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kk = k0 + warp * 16 + g + 8 * i;
-    kin[i] = kk < Tk;
-    kp[i] = kin[i] ? k_pos[kk] : 0;
+__device__ __forceinline__ void init_barriers(BShared& sh) {
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(&sh.full[s], 1);
+    mbar_init(&sh.empty[s], 8);        // the 8 consumer warps
   }
+  mbar_init(&sh.own_full, 1);
+  mbar_init_fence();
+}
 
-  // Work items: (query tile, head in group), query tiles outer. An item is
-  // taken when the bound admits a pair of it or a row of it is lost.
-  auto admitted = [&](int item) {
-    const int qt = item / G, hh = kvh * G + item % G;
-    bool any_lost;
-    const Range qr = q_tiles(qrange, lost, (int64_t)b * H + hh, n_qt32,
-                             qt * BQ, BQ, &any_lost);
-    return any_lost || admits(qr, kr, window);
-  };
-  auto next_item = [&](int from) {
-    int it = from;
-    while (it < n_qt * G && !admitted(it)) ++it;
-    return it;
-  };
-  auto issue = [&](int item, int st) {
-    if (item < n_qt * G) {
-      const int qt = item / G, hh = kvh * G + item % G;
-      const int64_t bh = (int64_t)b * H + hh;
-      load_rows<HD>(Qs + st * BQ * LD, q + b * sq.b + hh * sq.h, sq.t,
-                    qt * BQ, BQ, Tq, tid, 128);
-      load_rows<HD>(Ds + st * BQ * LD, dout + b * sdo.b + hh * sdo.h, sdo.t,
-                    qt * BQ, BQ, Tq, tid, 128);
-      for (int r = tid; r < BQ; r += 128) {
-        const int qi = qt * BQ + r;
-        const bool in = qi < Tq;
-        lse_s[st * BQ + r] = in ? lse[bh * Tq + qi] : 0.f;
-        D_s[st * BQ + r] = in ? Dsum[bh * Tq + qi] : 0.f;
-        qp_s[st * BQ + r] = in ? q_pos[qi] : 0;
+// One dK/dV work item (see the note): `blk` is its place in the list.
+template <int HD>
+__device__ __forceinline__ void dkdv_block(const BwdMaps& m, const BwdArgs& a,
+                                           int blk, unsigned char* smem,
+                                           BShared& sh) {
+  using C = BCfg<HD>;
+  constexpr int BS = C::BS;
+  const CUtensorMap &tq = m.q_str, &tdo = m.do_str, &tk = m.k_own,
+                    &tv = m.v_own;
+  const float* __restrict__ lse = a.lse;
+  const float* __restrict__ Dsum = a.Dsum;
+  const int *__restrict__ lost = a.lost, *__restrict__ qrange = a.qrange,
+            *__restrict__ krange = a.krange, *__restrict__ q_pos = a.q_pos,
+            *__restrict__ k_pos = a.k_pos;
+  const int B = a.B, H = a.H, KV = a.KV, Tq = a.Tq, Tk = a.Tk;
+  const int window = a.window;
+  const float scale = a.scale;
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + C::OWN_BYTES;
+  unsigned char* ring = smem + C::OFF_RING;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  const int G = H / KV;
+  // Longest first: key tile 0 sees every causal query tile.
+  const int kt = blk / (KV * B), rem = blk % (KV * B);
+  const int kvh = rem % KV, b = rem / KV, k0 = kt * OWN;
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sh.own_full, 2 * C::OWN_BYTES);
+      for (int cb = 0; cb < C::NCB; ++cb) {
+        tma_load_4d(Ks + cb * C::OWN_CB, &tk, &sh.own_full, cb * 64, k0, kvh,
+                    b);
+        tma_load_4d(Vs + cb * C::OWN_CB, &tv, &sh.own_full, cb * 64, k0, kvh,
+                    b);
       }
     }
-    cp_async_commit();
-  };
-
-  load_rows<HD>(Ks, k + b * sk.b + kvh * sk.h, sk.t, k0, KT, Tk, tid, 128);
-  load_rows<HD>(Vs, v + b * sv.b + kvh * sv.h, sv.t, k0, KT, Tk, tid, 128);
-  int cur = next_item(0);
-  issue(cur, 0);
-
-  float dk_acc[NO][4], dv_acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
-
-  const bf16* Kw = Ks + warp * 16 * LD;
-  const bf16* Vw = Vs + warp * 16 * LD;
-  for (int stage = 0; cur < n_qt * G; stage ^= 1) {
-    cp_async_wait<0>();
-    __syncthreads();          // item `cur` landed; the other stage is free
-    const int nxt = next_item(cur + 1);
-    issue(nxt, stage ^ 1);
-    const int q0 = (cur / G) * BQ;
-    const bf16* Qt = Qs + stage * BQ * LD;
-    const bf16* Dt = Ds + stage * BQ * LD;
-    const float* ls = lse_s + stage * BQ;
-    const float* dsum = D_s + stage * BQ;
-    const int* qps = qp_s + stage * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: rows = the warp's keys, cols = queries.
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
-    mma_abt<HD, BQ>(s, Kw, Qt, lane);
-    mma_abt<HD, BQ>(dp, Vw, Dt, lane);
-
-    // P^T into s, dS^T into dp.
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c >> 1, col = 8 * n + 2 * t + (c & 1);
-        const float l = ls[col];
-        float p = 0.f, ds = 0.f;
-        if (kin[i] && q0 + col < Tq) {
-          if (isinf(l)) {
-            p = inv_tk;                       // lost row: uniform average
-          } else if (admissible(kp[i], qps[col], window)) {
-            p = exp2f(s[n][c] * scale_log2 - l * kLog2e);
-            ds = p * (dp[n][c] - dsum[col]);
+    const int n_q32 = (Tq + PREP_ROWS - 1) / PREP_ROWS;
+    const Range kr = chunk_range(krange, k0 / KCH, (k0 + OWN) / KCH,
+                                 (Tk + KCH - 1) / KCH);
+    const bool k_full = k0 + OWN <= Tk;
+    const int n_items = (Tq + BS - 1) / BS * G;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int base = 0; base < n_items; base += 32) {
+      // Lane l decides item base + l: (query tile, head of the group).
+      const int it = base + lane;
+      bool take = false, plain = false;
+      if (it < n_items) {
+        const int x = it / G, hh = kvh * G + it % G;
+        const int c0 = x * (BS / PREP_ROWS), c1 = c0 + BS / PREP_ROWS;
+        const Range qr = chunk_range(qrange, c0, c1, n_q32);
+        bool any_lost = false;
+        for (int c = c0; c < c1 && c < n_q32; ++c)
+          any_lost |= lost[((int64_t)b * H + hh) * n_q32 + c] != 0;
+        take = any_lost || admits(qr, kr, window);
+        plain = !any_lost && k_full && (x + 1) * BS <= Tq &&
+                all_admitted(qr, kr, window);
+      }
+      uint32_t todo = __ballot_sync(0xffffffffu, take);
+      const uint32_t plains = __ballot_sync(0xffffffffu, plain);
+      while (todo) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int item = base + j, hh = kvh * G + item % G;
+        const int q0 = item / G * BS;
+        const int64_t bh = (int64_t)b * H + hh;
+        mbar_wait(&sh.empty[stage], phase ^ 1);
+        for (int r = lane; r < BS; r += 32) {
+          const int qi = q0 + r;
+          const bool in = qi < Tq;   // a row past Tq: dO is zero there
+          sh.lse2[stage][r] = in ? lse[bh * Tq + qi] * kLog2e : INFINITY;
+          sh.dsum[stage][r] = in ? Dsum[bh * Tq + qi] : 0.f;
+          sh.pos[stage][r] = in ? q_pos[qi] : 0;
+        }
+        if (lane == 0) {
+          sh.tile[stage] = item;
+          sh.masked[stage] = !((plains >> j) & 1);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sh.full[stage], 2 * C::STR_BYTES);
+          unsigned char* qd = ring + stage * 2 * C::STR_BYTES;
+          unsigned char* dd = qd + C::STR_BYTES;
+          for (int cb = 0; cb < C::NCB; ++cb) {
+            tma_load_4d(qd + cb * C::STR_CB, &tq, &sh.full[stage], cb * 64,
+                        q0, hh, b);
+            tma_load_4d(dd + cb * C::STR_CB, &tdo, &sh.full[stage], cb * 64,
+                        q0, hh, b);
           }
         }
-        s[n][c] = p;
-        dp[n][c] = ds;
-      }
-    mma_xb<HD, BQ>(dv_acc, s, Dt, lane);
-    mma_xb<HD, BQ>(dk_acc, dp, Qt, lane);
-    cur = nxt;
-  }
-  cp_async_wait<0>();
-
-  const int r0 = k0 + warp * 16;
-  store_rows<HD>(dk + b * sdk.b + kvh * sdk.h, sdk.t, dk_acc, scale, r0, Tk,
-                 lane);
-  store_rows<HD>(dv + b * sdv.b + kvh * sdv.h, sdv.t, dv_acc, 1.f, r0, Tk,
-                 lane);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(128) bwd_dq_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ Dsum, const int* __restrict__ qrange,
-    const int* __restrict__ krange, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ dq, int Tq,
-    int Tk, int G, int window, float scale, Strides sq, Strides sk,
-    Strides sv, Strides sdo, Strides sdq) {
-  using Cf = BCfg<HD>;
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = Cf::LD, NS = KT / 8, NO = Cf::NO;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ds = Qs + QT * LD;
-  bf16* Ks = Ds + QT * LD;                  // [2][KT][LD]
-  bf16* Vs = Ks + 2 * KT * LD;              // [2][KT][LD]
-  int* kp_s = reinterpret_cast<int*>(Vs + 2 * KT * LD);   // [2][KT]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int H = gridDim.y, hk = h / G, q0 = qt * QT;
-  const int64_t bh = (int64_t)b * H + h;
-  const int n_qt32 = (Tq + PREP_ROWS - 1) / PREP_ROWS;
-  const int n_kt = (Tk + KT - 1) / KT;
-  const float scale_log2 = scale * kLog2e;
-  Range qr{INT_MAX, INT_MIN};
-  for (int x = q0 / PREP_ROWS; x < (q0 + QT) / PREP_ROWS && x < n_qt32; ++x) {
-    qr.lo = min(qr.lo, qrange[2 * x]);
-    qr.hi = max(qr.hi, qrange[2 * x + 1]);
-  }
-
-  // This warp's rows g and g + 8: position, LSE, D (lost rows get no dQ).
-  int qp[2];
-  float lr[2], dr[2];
-  bool live[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + warp * 16 + g + 8 * i;
-    const bool in = qi < Tq;
-    qp[i] = in ? q_pos[qi] : 0;
-    lr[i] = in ? lse[bh * Tq + qi] : INFINITY;
-    dr[i] = in ? Dsum[bh * Tq + qi] : 0.f;
-    live[i] = !isinf(lr[i]);
-  }
-
-  auto next_tile = [&](int from) {
-    int x = from;
-    while (x < n_kt && !admits(qr, Range{krange[2 * x], krange[2 * x + 1]},
-                               window))
-      ++x;
-    return x;
-  };
-  auto issue = [&](int x, int st) {
-    if (x < n_kt) {
-      load_rows<HD>(Ks + st * KT * LD, k + b * sk.b + hk * sk.h, sk.t, x * KT,
-                    KT, Tk, tid, 128);
-      load_rows<HD>(Vs + st * KT * LD, v + b * sv.b + hk * sv.h, sv.t, x * KT,
-                    KT, Tk, tid, 128);
-      for (int j = tid; j < KT; j += 128) {
-        const int kk = x * KT + j;
-        kp_s[st * KT + j] = kk < Tk ? k_pos[kk] : 0;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
     }
-    cp_async_commit();
-  };
-
-  load_rows<HD>(Qs, q + b * sq.b + h * sq.h, sq.t, q0, QT, Tq, tid, 128);
-  load_rows<HD>(Ds, dout + b * sdo.b + h * sdo.h, sdo.t, q0, QT, Tq, tid,
-                128);
-  int cur = next_tile(0);
-  issue(cur, 0);
-
-  float dq_acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq_acc[n][c] = 0.f;
-
-  const bf16* Qw = Qs + warp * 16 * LD;
-  const bf16* Dw = Ds + warp * 16 * LD;
-  for (int stage = 0; cur < n_kt; stage ^= 1) {
-    cp_async_wait<0>();
-    __syncthreads();
-    const int nxt = next_tile(cur + 1);
-    issue(nxt, stage ^ 1);
-    const int k0 = cur * KT;
-    const bf16* Kt = Ks + stage * KT * LD;
-    const bf16* Vt = Vs + stage * KT * LD;
-    const int* kps = kp_s + stage * KT;
-
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
-    mma_abt<HD, KT>(s, Qw, Kt, lane);
-    mma_abt<HD, KT>(dp, Dw, Vt, lane);
-
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c >> 1, col = 8 * n + 2 * t + (c & 1);
-        float ds = 0.f;
-        if (live[i] && k0 + col < Tk && admissible(kps[col], qp[i], window)) {
-          const float p = exp2f(s[n][c] * scale_log2 - lr[i] * kLog2e);
-          ds = p * (dp[n][c] - dr[i]);
-        }
-        dp[n][c] = ds;
-      }
-    mma_xb<HD, KT>(dq_acc, dp, Kt, lane);
-    cur = nxt;
+    // End of the sweep: a stage with no data.
+    mbar_wait(&sh.empty[stage], phase ^ 1);
+    if (lane == 0) {
+      sh.tile[stage] = -1;
+      mbar_arrive(&sh.full[stage]);
+    }
+    return;
   }
-  cp_async_wait<0>();
-  store_rows<HD>(dq + b * sdq.b + h * sdq.h, sdq.t, dq_acc, scale,
-                 q0 + warp * 16, Tq, lane);
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1, wtid = tid - 128 * wg;
+  const int t = lane & 3;
+  const int r0 = cw * 64 + (wtid >> 5) * 16 + (lane >> 2);  // rows r0, r0+8
+  int kp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kk = k0 + r0 + 8 * i;
+    kp[i] = kk < Tk ? k_pos[kk] : 0;   // a key past Tk is never stored
+  }
+  const float scale_log2 = scale * kLog2e, inv_tk = 1.f / (float)Tk;
+  const uint32_t k_base = smem_u32(Ks) + cw * 64 * SW;
+  const uint32_t v_base = smem_u32(Vs) + cw * 64 * SW;
+  const uint32_t ring_base = smem_u32(ring);
+
+  constexpr int NO = C::HDP / 2, NS = BS / 2;
+  float dk_acc[NO], dv_acc[NO];
+#pragma unroll
+  for (int x = 0; x < NO; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  mbar_wait(&sh.own_full, 0);
+
+  for (;;) {
+    mbar_wait(&sh.full[stage], phase);
+    if (sh.tile[stage] < 0) break;
+    const uint32_t qst = ring_base + stage * 2 * C::STR_BYTES;
+    const uint32_t dst = qst + C::STR_BYTES;
+    // S^T = K Q^T and dP^T = V dO^T: rows = this warpgroup's 64 keys.
+    float s[NS], dp[NS];
+    wgmma_fence();
+    product_abt<HD, BS>(s, k_base, C::OWN_CB, qst, C::STR_CB);
+    product_abt<HD, BS>(dp, v_base, C::OWN_CB, dst, C::STR_CB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NS>(s);
+    fence_regs<NS>(dp);
+
+    // P^T and dS^T, rounded to bf16 pairs in wgmma's A layout. Branch-free,
+    // so the exponentials of many elements overlap: a lost column (lse +inf)
+    // gets exp2(-inf) = 0, hence dS^T = 0, and then P^T = 1 / Tk.
+    const float* l2 = sh.lse2[stage];
+    const float* dd = sh.dsum[stage];
+    const int* qp = sh.pos[stage];
+    uint32_t pa[BS / 16][4], sa[BS / 16][4];
+    if (sh.masked[stage]) {
+#pragma unroll
+      for (int x = 0; x < NS; x += 2) {
+        const int i = (x >> 1) & 1, col = 8 * (x >> 2) + 2 * t;
+        const float2 lv = *reinterpret_cast<const float2*>(l2 + col);
+        const float2 dv2 = *reinterpret_cast<const float2*>(dd + col);
+        const int2 pv = *reinterpret_cast<const int2*>(qp + col);
+        const float lc[2] = {lv.x, lv.y}, dc[2] = {dv2.x, dv2.y};
+        const int pc[2] = {pv.x, pv.y};
+        float p[2], ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          p[c] = fast_exp2(fmaf(s[x + c], scale_log2, -lc[c]));
+          if (!admissible(kp[i], pc[c], window)) p[c] = 0.f;
+          ds[c] = p[c] * (dp[x + c] - dc[c]);
+          if (lc[c] == INFINITY) p[c] = inv_tk;
+        }
+        pa[x >> 3][(x >> 1) & 3] = pack_bf16x2(p[0], p[1]);
+        sa[x >> 3][(x >> 1) & 3] = pack_bf16x2(ds[0], ds[1]);
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < NS; x += 2) {
+        const int col = 8 * (x >> 2) + 2 * t;
+        const float2 lv = *reinterpret_cast<const float2*>(l2 + col);
+        const float2 dv2 = *reinterpret_cast<const float2*>(dd + col);
+        const float p0 = fast_exp2(fmaf(s[x], scale_log2, -lv.x));
+        const float p1 = fast_exp2(fmaf(s[x + 1], scale_log2, -lv.y));
+        pa[x >> 3][(x >> 1) & 3] = pack_bf16x2(p0, p1);
+        sa[x >> 3][(x >> 1) & 3] = pack_bf16x2(p0 * (dp[x] - dv2.x),
+                                               p1 * (dp[x + 1] - dv2.y));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q.
+    wgmma_fence();
+    fence_regs<NO>(dv_acc);
+    fence_regs<NO>(dk_acc);
+    product_xb<HD, BS / 16>(dv_acc, pa, dst, C::STR_CB);
+    product_xb<HD, BS / 16>(dk_acc, sa, qst, C::STR_CB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<BS / 16>(pa);
+    fence_frags<BS / 16>(sa);
+    fence_regs<NO>(dv_acc);
+    fence_regs<NO>(dk_acc);
+    if (lane == 0) mbar_arrive(&sh.empty[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+
+  store_tile<HD>(a.dk + b * a.sdk.b + kvh * a.sdk.h, a.sdk.t, dk_acc, scale,
+                 k0 + r0, Tk, lane);
+  store_tile<HD>(a.dv + b * a.sdv.b + kvh * a.sdv.h, a.sdv.t, dv_acc, 1.f,
+                 k0 + r0, Tk, lane);
 }
+
+// One dQ work item: `blk` is its place in the dQ part of the list.
+template <int HD>
+__device__ __forceinline__ void dq_block(const BwdMaps& m, const BwdArgs& a,
+                                         int blk, unsigned char* smem,
+                                         BShared& sh) {
+  using C = BCfg<HD>;
+  constexpr int BS = C::BS;
+  const CUtensorMap &tq = m.q_own, &tdo = m.do_own, &tk = m.k_str,
+                    &tv = m.v_str;
+  const float* __restrict__ lse = a.lse;
+  const float* __restrict__ Dsum = a.Dsum;
+  const int *__restrict__ qrange = a.qrange, *__restrict__ krange = a.krange,
+            *__restrict__ q_pos = a.q_pos, *__restrict__ k_pos = a.k_pos;
+  const int B = a.B, H = a.H, KV = a.KV, Tq = a.Tq, Tk = a.Tk;
+  const int window = a.window;
+  const float scale = a.scale;
+  unsigned char* Qs = smem;
+  unsigned char* Ds = smem + C::OWN_BYTES;
+  unsigned char* ring = smem + C::OFF_RING;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  // Longest first: the last query tile sees the most causal key tiles.
+  const int n_qt = (Tq + OWN - 1) / OWN;
+  const int qt = n_qt - 1 - blk / (H * B), rem = blk % (H * B);
+  const int h = rem % H, b = rem / H, hk = h / (H / KV), q0 = qt * OWN;
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sh.own_full, 2 * C::OWN_BYTES);
+      for (int cb = 0; cb < C::NCB; ++cb) {
+        tma_load_4d(Qs + cb * C::OWN_CB, &tq, &sh.own_full, cb * 64, q0, h,
+                    b);
+        tma_load_4d(Ds + cb * C::OWN_CB, &tdo, &sh.own_full, cb * 64, q0, h,
+                    b);
+      }
+    }
+    const int n_k64 = (Tk + KCH - 1) / KCH;
+    const Range qr = chunk_range(qrange, q0 / PREP_ROWS,
+                                 (q0 + OWN) / PREP_ROWS,
+                                 (Tq + PREP_ROWS - 1) / PREP_ROWS);
+    const int n_kt = (Tk + BS - 1) / BS;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int base = 0; base < n_kt; base += 32) {
+      const int y = base + lane;
+      bool take = false, plain = false;
+      if (y < n_kt) {
+        const Range kr = chunk_range(krange, y * (BS / KCH),
+                                     (y + 1) * (BS / KCH), n_k64);
+        take = admits(qr, kr, window);
+        // A lost row or one past Tq has lse +inf, so P = 0 there unmasked.
+        plain = (y + 1) * BS <= Tk && all_admitted(qr, kr, window);
+      }
+      uint32_t todo = __ballot_sync(0xffffffffu, take);
+      const uint32_t plains = __ballot_sync(0xffffffffu, plain);
+      while (todo) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int k0 = (base + j) * BS;
+        mbar_wait(&sh.empty[stage], phase ^ 1);
+        for (int r = lane; r < BS; r += 32)
+          sh.pos[stage][r] = k0 + r < Tk ? k_pos[k0 + r] : INT_MAX;
+        if (lane == 0) {
+          sh.tile[stage] = base + j;
+          sh.masked[stage] = !((plains >> j) & 1);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sh.full[stage], 2 * C::STR_BYTES);
+          unsigned char* kd = ring + stage * 2 * C::STR_BYTES;
+          unsigned char* vd = kd + C::STR_BYTES;
+          for (int cb = 0; cb < C::NCB; ++cb) {
+            tma_load_4d(kd + cb * C::STR_CB, &tk, &sh.full[stage], cb * 64,
+                        k0, hk, b);
+            tma_load_4d(vd + cb * C::STR_CB, &tv, &sh.full[stage], cb * 64,
+                        k0, hk, b);
+          }
+        }
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    mbar_wait(&sh.empty[stage], phase ^ 1);
+    if (lane == 0) {
+      sh.tile[stage] = -1;
+      mbar_arrive(&sh.full[stage]);
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1, wtid = tid - 128 * wg;
+  const int t = lane & 3;
+  const int r0 = cw * 64 + (wtid >> 5) * 16 + (lane >> 2);  // rows r0, r0+8
+  const int64_t bh = (int64_t)b * H + h;
+  // This thread's rows: position, lse * log2 e (+inf: lost or past Tq, so
+  // P = 0 and the row gets no dQ), D.
+  int qp[2];
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    const bool in = qi < Tq;
+    qp[i] = in ? q_pos[qi] : 0;
+    lr[i] = in ? lse[bh * Tq + qi] * kLog2e : INFINITY;
+    dr[i] = in ? Dsum[bh * Tq + qi] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_base = smem_u32(Qs) + cw * 64 * SW;
+  const uint32_t do_base = smem_u32(Ds) + cw * 64 * SW;
+  const uint32_t ring_base = smem_u32(ring);
+
+  constexpr int NO = C::HDP / 2, NS = BS / 2;
+  float dq_acc[NO];
+#pragma unroll
+  for (int x = 0; x < NO; ++x) dq_acc[x] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  mbar_wait(&sh.own_full, 0);
+
+  for (;;) {
+    mbar_wait(&sh.full[stage], phase);
+    if (sh.tile[stage] < 0) break;
+    const uint32_t kst = ring_base + stage * 2 * C::STR_BYTES;
+    const uint32_t vst = kst + C::STR_BYTES;
+    float s[NS], dp[NS];
+    wgmma_fence();
+    product_abt<HD, BS>(s, q_base, C::OWN_CB, kst, C::STR_CB);
+    product_abt<HD, BS>(dp, do_base, C::OWN_CB, vst, C::STR_CB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NS>(s);
+    fence_regs<NS>(dp);
+
+    // dS in two branch-free loops (masked tiles and the rest), so the
+    // exponentials of many elements overlap.
+    const int* kps = sh.pos[stage];
+    uint32_t sa[BS / 16][4];
+    if (sh.masked[stage]) {
+#pragma unroll
+      for (int x = 0; x < NS; x += 2) {
+        const int i = (x >> 1) & 1, col = 8 * (x >> 2) + 2 * t;
+        const int2 kv = *reinterpret_cast<const int2*>(kps + col);
+        const int kc2[2] = {kv.x, kv.y};
+        float ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p = fast_exp2(fmaf(s[x + c], scale_log2, -lr[i]));
+          if (!admissible(kc2[c], qp[i], window)) p = 0.f;
+          ds[c] = p * (dp[x + c] - dr[i]);
+        }
+        sa[x >> 3][(x >> 1) & 3] = pack_bf16x2(ds[0], ds[1]);
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < NS; x += 2) {
+        const int i = (x >> 1) & 1;
+        sa[x >> 3][(x >> 1) & 3] = pack_bf16x2(
+            fast_exp2(fmaf(s[x], scale_log2, -lr[i])) * (dp[x] - dr[i]),
+            fast_exp2(fmaf(s[x + 1], scale_log2, -lr[i])) *
+                (dp[x + 1] - dr[i]));
+      }
+    }
+    wgmma_fence();
+    fence_regs<NO>(dq_acc);
+    product_xb<HD, BS / 16>(dq_acc, sa, kst, C::STR_CB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<BS / 16>(sa);
+    fence_regs<NO>(dq_acc);
+    if (lane == 0) mbar_arrive(&sh.empty[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+
+  store_tile<HD>(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.t, dq_acc, scale,
+                 q0 + r0, Tq, lane);
+}
+
+// The dK/dV and dQ work items in one launch: blocks [0, n_kv) take the
+// dK/dV items longest first, the rest the dQ items longest first, so the
+// short dQ items fill the SMs that the long dK/dV ones leave idle at the
+// end. The two parts share the block shape and the shared-memory layout.
+template <int HD>
+__global__ void __launch_bounds__(WNT, 1) bwd_wgmma_kernel(
+    const __grid_constant__ BwdMaps maps, const BwdArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ BShared sh;
+  // Swizzle atoms must sit on 1024-byte boundaries.
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  if (threadIdx.x == 0) init_barriers(sh);
+  __syncthreads();
+  if ((int)blockIdx.x < args.n_kv)
+    dkdv_block<HD>(maps, args, blockIdx.x, smem, sh);
+  else
+    dq_block<HD>(maps, args, blockIdx.x - args.n_kv, smem, sh);
+}
+
 
 // ------------------------------------------------------------- f32 kernels
 
@@ -840,6 +1077,7 @@ __global__ void __launch_bounds__(256) bwd_dq_f32_kernel(
   }
 }
 
+
 // ------------------------------------------------------------------ launch
 
 struct Args {
@@ -854,11 +1092,39 @@ struct Args {
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
 };
 
+template <int HD>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
+  using C = BCfg<HD>;
+  using bf16 = __nv_bfloat16;
+  static unsigned long long done = 0;
+  cudaError_t err = set_smem_once(bwd_wgmma_kernel<HD>, C::SMEM, &done);
+  if (err != cudaSuccess) return err;
+  BwdMaps m;
+  if (!make_map(&m.q_str, a.q, HD, a.Tq, a.H, a.B, a.sq, C::BS) ||
+      !make_map(&m.do_str, a.dout, HD, a.Tq, a.H, a.B, a.sdo, C::BS) ||
+      !make_map(&m.k_own, a.k, HD, a.Tk, a.KV, a.B, a.sk, OWN) ||
+      !make_map(&m.v_own, a.v, HD, a.Tk, a.KV, a.B, a.sv, OWN) ||
+      !make_map(&m.q_own, a.q, HD, a.Tq, a.H, a.B, a.sq, OWN) ||
+      !make_map(&m.do_own, a.dout, HD, a.Tq, a.H, a.B, a.sdo, OWN) ||
+      !make_map(&m.k_str, a.k, HD, a.Tk, a.KV, a.B, a.sk, C::BS) ||
+      !make_map(&m.v_str, a.v, HD, a.Tk, a.KV, a.B, a.sv, C::BS))
+    return cudaErrorInvalidValue;
+  const int n_kv = (a.Tk + OWN - 1) / OWN * a.KV * a.B;
+  const int n_q = (a.Tq + OWN - 1) / OWN * a.H * a.B;
+  const BwdArgs args{a.lse, a.Dsum, a.lost, a.qrange, a.krange, a.q_pos,
+                     a.k_pos, static_cast<bf16*>(a.dq),
+                     static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.B,
+                     a.H, a.KV, a.Tq, a.Tk, a.window, n_kv, a.scale, a.sdq,
+                     a.sdk, a.sdv};
+  bwd_wgmma_kernel<HD><<<n_kv + n_q, WNT, C::SMEM, st>>>(m, args);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   const int G = a.H / a.KV;
   const int n_qt32 = (a.Tq + PREP_ROWS - 1) / PREP_ROWS;
-  const int n_kt64 = (a.Tk + KT - 1) / KT;
+  const int n_kt64 = (a.Tk + KCH - 1) / KCH;
   const int n_prep = n_qt32 > n_kt64 ? n_qt32 : n_kt64;
   bwd_prep_kernel<T, HD><<<dim3(n_prep, a.H, a.B), 256, 0, st>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse,
@@ -867,30 +1133,7 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    using Cf = BCfg<HD>;
-    using bf16 = __nv_bfloat16;
-    static unsigned long long done_kv = 0, done_q = 0;
-    err = set_smem_once(bwd_dkdv_bf16_kernel<HD>, Cf::KV_SMEM, &done_kv);
-    if (err != cudaSuccess) return err;
-    err = set_smem_once(bwd_dq_bf16_kernel<HD>, Cf::Q_SMEM, &done_q);
-    if (err != cudaSuccess) return err;
-    bwd_dkdv_bf16_kernel<HD><<<dim3(n_kt64, a.KV, a.B), 128, Cf::KV_SMEM,
-                               st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.Dsum, a.lost, a.qrange, a.krange, a.q_pos, a.k_pos,
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq, a.Tk, G,
-        a.window, a.scale, a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    bwd_dq_bf16_kernel<HD><<<dim3((a.Tq + QT - 1) / QT, a.H, a.B), 128,
-                             Cf::Q_SMEM, st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.Dsum, a.qrange, a.krange, a.q_pos, a.k_pos,
-        static_cast<bf16*>(a.dq), a.Tq, a.Tk, G, a.window, a.scale, a.sq,
-        a.sk, a.sv, a.sdo, a.sdq);
-    return cudaGetLastError();
+    return launch_wgmma<HD>(a, st);
   } else {
     static unsigned long long done_kv = 0, done_q = 0;
     constexpr int smem = f32_smem_bytes<HD>();
@@ -920,7 +1163,9 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
 template <typename T>
 cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t st) {
   switch (hd) {
+    case 32: return launch<T, 32>(a, st);
     case 64: return launch<T, 64>(a, st);
+    case 112: return launch<T, 112>(a, st);
     case 128: return launch<T, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }
@@ -929,12 +1174,13 @@ cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t st) {
 }  // namespace
 
 // q, o, dout, dq [B, H, Tq, hd]; k, v, dk, dv [B, KV, Tk, hd], each given by
-// its element strides (8 x 4, in that order); lse [B, H, Tq] f32 contiguous
-// from flash_attention_fwd (natural log, +inf for a row with no admissible
-// key); q_pos [Tq], k_pos [Tk] int32 contiguous. Workspace: Dsum [B, H, Tq]
-// f32; ints: lost [B, H, ceil(Tq/32)], qrange [2 ceil(Tq/32)], krange
-// [2 ceil(Tk/64)]. Launches three kernels on `stream` (prep, dK/dV, dQ) and
-// returns cudaGetLastError() after the last launch.
+// its element strides (8 x 4, in that order); hd 32, 64, 112 or 128; lse
+// [B, H, Tq] f32 contiguous from flash_attention_fwd (natural log, +inf for
+// a row with no admissible key); q_pos [Tq], k_pos [Tk] int32 contiguous.
+// Workspace: Dsum [B, H, Tq] f32; ints: lost [B, H, ceil(Tq/32)], qrange
+// [2 ceil(Tq/32)], krange [2 ceil(Tk/64)]. Launches on `stream` the
+// pre-pass, then (bf16) the dK/dV + dQ kernel or (f32) the dK/dV and dQ
+// kernels, and returns cudaGetLastError() after the last launch.
 EXPORT int flash_attention_bwd(
     int dtype, int hd, const void* q, const void* k, const void* v,
     const void* o, const void* dout, const float* lse, void* dq, void* dk,

@@ -16,7 +16,6 @@ from __future__ import annotations
 import torch
 
 from .._layout import aligned16
-from ..flash_attention_bwd import kernel as bwd_kernel
 from ..flash_attention_bwd.ops import flash_attention_bwd
 from . import kernel
 from .ref import attention_ref
@@ -63,7 +62,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, q_pos, k_pos, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        bwd_kernel.check_head_dim(q.shape[-1])
         return FlashAttention.apply(q, k, v, q_pos, k_pos, int(window))
     out = kernel.flash_attention(q, k, v, q_pos, k_pos, window=window)
     flash_attention.launches += 1

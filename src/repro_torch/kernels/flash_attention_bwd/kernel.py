@@ -3,12 +3,14 @@
 The kernel is CUDA C++ in `kernels/csrc/flash_attention_bwd.cu`, which
 carries the design note: the backward of `kernels/csrc/flash_attention.cu`,
 for training (the reference differentiates its XLA attention instead; no
-TPU kernel of it has a backward). One call launches three kernels: a
-pre-pass (D = rowsum(dO * O), tile position ranges, rows with no
-admissible key), dK/dV (one block per 64-key tile and KV head, looping over
-the group's query heads: no atomics) and dQ. This module checks the
-operands, allocates the gradients and the workspace and launches on the
-current stream through its C entry point.
+TPU kernel of it has a backward). One call launches a pre-pass (D =
+rowsum(dO * O), tile position ranges, rows with no admissible key) and
+then the main kernel, whose blocks take dK/dV work items (a key tile and
+a KV head, looping over the group's query heads: no atomics) and dQ work
+items; in bf16 they feed wgmma from a TMA ring. It takes the forward's
+head dims.
+This module checks the operands, allocates the gradients and the
+workspace and launches on the current stream through its C entry point.
 """
 from __future__ import annotations
 
@@ -19,10 +21,7 @@ import torch
 
 from .. import _build
 from .._layout import check_aligned
-from ..flash_attention.kernel import DTYPES
-
-HEAD_DIMS = (64, 128)
-ITEM = "ROADMAP item 8b"
+from ..flash_attention.kernel import DTYPES, HEAD_DIMS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, *([_P] * 15), _I, _I, _I, _I, _I, _I, _F, _P, _P]
@@ -33,13 +32,6 @@ def _entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
-
-
-def check_head_dim(hd: int) -> None:
-    """The head dims the backward kernel takes; others wait for item 8b."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention backward: head dim {hd} not in "
-                         f"{HEAD_DIMS} ({ITEM} brings the others)")
 
 
 def _check(q, k, v, o, lse, do, q_pos, k_pos):
@@ -66,7 +58,8 @@ def _check(q, k, v, o, lse, do, q_pos, k_pos):
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o and do must be {tuple(q.shape)}, got "
                          f"{tuple(o.shape)}, {tuple(do.shape)}")
-    check_head_dim(hd)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if min(B, H, Tq, Tk) == 0 or max(Tq, Tk) >= 2 ** 31:
         raise ValueError(f"unsupported sizes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")

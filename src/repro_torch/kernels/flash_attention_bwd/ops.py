@@ -2,8 +2,8 @@
 the plain version for CPU tensors.
 
 `flash_attention_bwd.launches` counts the kernel's launches (one per call:
-the pre-pass, dK/dV and dQ kernels together), so a training run can show
-that its attention gradients went through the kernel.
+the pre-pass and the dK/dV + dQ kernel together), so a training run can
+show that its attention gradients went through the kernel.
 """
 from __future__ import annotations
 

@@ -652,6 +652,9 @@ def _assert_grad_matches(name, got, want, wants):
     (1, 8, 1, 130, 515, 128, 0, True),
     (2, 16, 2, 200, 200, 128, 8192, False),  # hd 128 at G 8, window >= T
     (1, 2, 2, 1, 1, 64, 0, False),
+    (2, 8, 2, 300, 300, 32, 0, False),      # the smoke configs' hd 32
+    (1, 4, 4, 333, 333, 112, 64, True),     # zamba2's hd 112, a lost row
+    (1, 14, 2, 2048, 2048, 64, 0, False),   # the whole causal schedule
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_plain(dev, B, H, KV, Tq, Tk, hd, window,
@@ -681,14 +684,15 @@ def test_flash_bwd_kernel_matches_plain(dev, B, H, KV, Tq, Tk, hd, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 112])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_kernel_is_deterministic(dev, dtype):
+def test_flash_bwd_kernel_is_deterministic(dev, dtype, hd):
     """No float atomics: two launches give bit-identical gradients."""
     from repro_torch.kernels.flash_attention_bwd.ops import \
         flash_attention_bwd
 
     rng = np.random.default_rng(5)
-    args = _bwd_case(rng, 2, 14, 2, 640, 640, 64, dtype, dev)
+    args = _bwd_case(rng, 2, 14, 2, 640, 640, hd, dtype, dev)
     first = flash_attention_bwd(*args)
     second = flash_attention_bwd(*args)
     for a, b in zip(first, second):
@@ -696,7 +700,7 @@ def test_flash_bwd_kernel_is_deterministic(dev, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 def test_flash_attention_autograd_runs_both_kernels(dev, hd):
     """Under autograd the op's forward writes the LSE and its backward
     launches the backward kernel; the gradients equal the backward
@@ -726,8 +730,8 @@ def test_flash_attention_autograd_runs_both_kernels(dev, hd):
 def test_kernels_without_a_backward_refuse_a_gradient(dev):
     """decode_attention, ssm_scan, rwkv6_wkv and the int8 GEMM raise on
     CUDA when a gradient is asked of their inputs, rather than dropping
-    it; attention's backward refuses head dims it lacks; with grad mode
-    off they run."""
+    it; with grad mode off they run. Attention's backward takes every
+    head dim its forward takes: a gradient at hd 112 runs."""
     rng = np.random.default_rng(3)
     qd = torch.zeros(1, 2, 4, 64, device=dev, requires_grad=True)
     kc = torch.zeros(1, 2, 16, 64, device=dev)
@@ -748,8 +752,9 @@ def test_kernels_without_a_backward_refuse_a_gradient(dev):
     b = torch.ones(2, 32, 16, dtype=torch.int8, device=dev)
     assert int8_grouped_matmul(a, b).eq(32).all()   # int8 needs no grad
     x112 = torch.zeros(1, 2, 8, 112, device=dev, requires_grad=True)
-    with pytest.raises(ValueError, match="item 8b"):
-        flash_attention(x112, x112, x112)
+    grad, = torch.autograd.grad(flash_attention(x112, x112, x112).sum(),
+                                x112)
+    assert grad.shape == x112.shape and torch.isfinite(grad).all()
 
 
 # -- the MoE and io configs' attention widths ------------------------------

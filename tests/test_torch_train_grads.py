@@ -8,7 +8,9 @@ parameter tree through `params_from_numpy`), f32 throughout, on the CPU.
 - The attention backward's plain version (`flash_attention_bwd_ref`, the
   explicit formulas) against torch autograd through `attention_ref` and
   `jax.vjp` of the reference's `kernels/flash_attention/ref.attention_ref`,
-  and `lse_ref` against the logsumexp: f32 1e-5.
+  and `lse_ref` against the logsumexp: f32 1e-5, at hd 16 and at the
+  kernel's hd 32 and 112. The backward takes every head dim the forward
+  takes, and a CPU gradient through `flash_attention` runs the plain path.
 - `decoder.train_loss` and every gradient leaf against
   `jax.value_and_grad(repro.models.decoder.train_loss)` on seven smoke
   configs at T 64: loss rtol 1e-5, each leaf relative L2 <= 1e-5 (a
@@ -87,6 +89,7 @@ def test_chunked_ce_loss_and_grads_match_reference(S, chunk):
 
 # ------------------------------------------------ attention backward, plain
 
+@pytest.mark.parametrize("hd", [16, 32, 112])
 @pytest.mark.parametrize("name,B,H,KV,Tq,Tk,window,lost", [
     ("gqa7", 2, 14, 2, 40, 40, 0, False),
     ("window", 1, 4, 2, 50, 50, 9, False),
@@ -94,9 +97,8 @@ def test_chunked_ce_loss_and_grads_match_reference(S, chunk):
     ("lost-row", 1, 6, 2, 30, 45, 12, True),
 ])
 def test_attention_bwd_plain_matches_autograd_and_reference(
-        name, B, H, KV, Tq, Tk, window, lost):
+        name, B, H, KV, Tq, Tk, window, lost, hd):
     rng = np.random.default_rng(Tq + Tk)
-    hd = 16
     q = rng.normal(size=(B, H, Tq, hd)).astype(np.float32)
     k = rng.normal(size=(B, KV, Tk, hd)).astype(np.float32)
     v = rng.normal(size=(B, KV, Tk, hd)).astype(np.float32)
@@ -223,3 +225,39 @@ def test_remat_changes_no_value(remat):
     assert torch.equal(out[0][0], out[1][0])
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
+
+
+def test_attention_bwd_takes_the_forward_head_dims():
+    from repro_torch.kernels.flash_attention import kernel as fwd_kernel
+    from repro_torch.kernels.flash_attention_bwd import kernel as bwd_kernel
+
+    assert bwd_kernel.HEAD_DIMS == fwd_kernel.HEAD_DIMS == (32, 64, 112, 128)
+
+
+def test_cpu_attention_gradient_at_hd112_runs_the_plain_path():
+    """On CPU tensors `flash_attention` under autograd launches neither
+    kernel: its gradient is autograd's through the plain version, equal to
+    the plain backward on the same o and LSE."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention_bwd.ops import \
+        flash_attention_bwd
+
+    rng = np.random.default_rng(112)
+    B, H, KV, T, hd, window = 1, 4, 2, 24, 112, 8
+    q, do = (_t(rng.normal(size=(B, H, T, hd))) for _ in range(2))
+    k, v = (_t(rng.normal(size=(B, KV, T, hd))) for _ in range(2))
+    pos = torch.arange(T, dtype=torch.int32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, pos, pos, window=window)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == n_fwd
+    assert flash_attention_bwd.launches == n_bwd
+    lse = lse_ref(q, k, pos, pos, window)
+    want = flash_attention_bwd(q, k, v, out.detach(), lse, do, pos, pos,
+                               window)
+    assert flash_attention_bwd.launches == n_bwd
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)

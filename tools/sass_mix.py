@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Opcode mix of the served-shape scan kernels, from their SASS.
+"""Opcode mix of the port's kernels, from their SASS.
 
-    python3 tools/sass_mix.py
+    python3 tools/sass_mix.py [LIBRARY ...]
 
-Builds the two scan libraries (kernels/_build.py) and prints, for the f32
-instantiations that the served models launch (`ssd_kernel<float, 64, 64>`,
-`wkv_kernel<float, 64>`), the number of SASS instructions and the most
-frequent opcodes, by `cuobjdump -sass`. The chunk loop is unrolled inside,
-so the counts are close to one warp's instructions per chunk.
+With no argument, builds the two scan libraries (kernels/_build.py) and
+prints, for the f32 instantiations that the served models launch
+(`ssd_kernel<float, 64, 64>`, `wkv_kernel<float, 64>`), the number of SASS
+instructions and the most frequent opcodes, by `cuobjdump -sass`. The
+chunk loop is unrolled inside, so the counts are close to one warp's
+instructions per chunk. Given library names (`flash_attention_bwd`, ...),
+it prints the same for every kernel function of each, so that, say, the
+warpgroup products show as HGMMA.
 """
 from __future__ import annotations
 
@@ -23,25 +26,29 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 KERNELS = {"ssm_scan": "ssd_kernelIfLi64ELi64E", "rwkv6_wkv": "wkv_kernelIfLi64E"}
 
 
-def main() -> int:
+def main(libraries: list[str]) -> int:
     from repro_torch.kernels import _build
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    _build.build_all(tuple(KERNELS))
-    for name, mangled in KERNELS.items():
+    wanted = {lib: None for lib in libraries} or KERNELS
+    _build.build_all(tuple(wanted))
+    for name, mangled in wanted.items():
         sass = subprocess.run([cuobjdump, "-sass",
                                str(_build.library_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        body = next(f for f in re.split(r"\n\s+Function : ", sass)
-                    if mangled in f.split("\n", 1)[0])
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_.]+)", body)
-        mix = collections.Counter(op.split(".")[0] for op in ops)
-        print(f"{name}: {len(ops)} instructions; "
-              + ", ".join(f"{k} {v}" for k, v in mix.most_common(24)))
+        for body in re.split(r"\n\s+Function : ", sass)[1:]:
+            fn = body.split("\n", 1)[0].strip()
+            if mangled is not None and mangled not in fn:
+                continue
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]+)", body)
+            mix = collections.Counter(op.split(".")[0] for op in ops)
+            print(f"{name} {mangled or fn}: {len(ops)} instructions "
+                  f"(tensor-core: HGMMA {mix['HGMMA']}, HMMA {mix['HMMA']}); "
+                  + ", ".join(f"{k} {v}" for k, v in mix.most_common(24)))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
