@@ -67,13 +67,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      next: both attention kernels at the new configs' shapes (hd 128 at
      G 8, 5 and 6 with the MoE configs' 8192 window, musicgen's hd 64 at
      G 1) under phase 3's criteria, and the grouped int8 GEMM of the W8A8
-     experts bit for bit at kimi-k2's and llama4-scout's prefill and
-     decode shapes and on strided views, all timed as in phase 6 (the int8
-     GEMM beside a loop of torch._int_mm per expert where its shape rules
-     allow, a yardstick the port never calls); the served batch on four
-     engines (kimi-k2 at 1 layer, kimi-k2 W8A8 at 2, llama4-scout at 8 of
-     48, internvl2-26b whole), every kernel of each path launched, kimi-k2
-     and llama4-scout traced with their launches per layer per decode step;
+     experts, both its kernels (the K-major wgmma one the port serves and
+     the N-major mma.sync one, on the same values), bit for bit at
+     kimi-k2's and llama4-scout's prefill and decode shapes, on the a of a
+     served decode step (only the routed experts non-zero; how many it
+     fills is printed) and on strided views, all timed as in phase 6 (the
+     two kernels in turns, the K-major one's pre-pass alone, the dense
+     bound and the bound on the filled experts' bytes, a loop of
+     torch._int_mm per expert where its shape rules allow, a yardstick the
+     port never calls); the served batch on four engines (kimi-k2 at 1
+     layer, kimi-k2 W8A8 at 2, llama4-scout at 8 of 48, internvl2-26b
+     whole), every kernel of each path launched (every W8A8 int8 launch on
+     the wgmma kernel, its TTFT and tok/s printed beside the N-major
+     kernel's from PERF.md), kimi-k2,
+     its W8A8 engine (with the int8 kernels' device time) and
+     llama4-scout traced with their launches per layer per decode step;
      musicgen-medium whole through `decoder.prefill` (a [8, 64, 1536]
      prefix, [8, 999, 4] codebook tokens) and 32 decode steps; phase 5's
      logits checks on llama4-scout (2 layers), internvl2-26b (4 layers,
@@ -484,10 +492,13 @@ def serve_counted(engine, reqs, kernels, label, seed):
 
     cfg = engine.cfg
     ops = kernel_ops()
+    int8 = ops["int8_grouped_matmul"]
     for op in ops.values():
         op.launches = 0
+    int8.wgmma_launches = 0
     stats = serve.serve_batch(engine, reqs)
     launches = {name: op.launches for name, op in ops.items()}
+    launches[INT8_WGMMA] = int8.wgmma_launches
     print(f"  kernel launches in that run: {launches}")
     runs = [stats] + [serve.serve_batch(engine, serve.make_requests(
         PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)) for _ in range(2)]
@@ -571,10 +582,12 @@ def serve_recurrent(arch, dev, seed):
     return launches, trace
 
 
-def trace_batch(engine, reqs):
+def trace_batch(engine, reqs, named=None):
     """Phase 7: the served batch again, under torch.profiler. Returns
     (busy share, wall ms, busy ms, launches), or None when the profiler
-    saw no CUDA kernel."""
+    saw no CUDA kernel. `named` {label: substrings} adds, under "named",
+    each label's device ms and launches over the kernels whose name holds
+    one of its substrings."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
@@ -600,8 +613,19 @@ def trace_batch(engine, reqs):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:6d}x  {e.key[:90]}")
-    return dict(busy=busy_ms / wall_ms, wall_ms=wall_ms, busy_ms=busy_ms,
-                launches=n)
+    out = dict(busy=busy_ms / wall_ms, wall_ms=wall_ms, busy_ms=busy_ms,
+               launches=n)
+    if named:
+        out["named"] = {}
+        for label, subs in named.items():
+            hit = [e for e in rows if any(x in e.key for x in subs)]
+            out["named"][label] = dict(
+                device_ms=sum(e.self_device_time_total for e in hit) / 1e3,
+                launches=sum(e.count for e in hit))
+            print(f"  {label}: {out['named'][label]['device_ms']:.3f} ms of "
+                  f"device time in {out['named'][label]['launches']} "
+                  f"launches", flush=True)
+    return out
 
 
 def compare_paths(dev, seed, arch=ARCH, n_layers=None, prefix_rows=0,
@@ -1492,7 +1516,8 @@ MOE_IO_ENGINES = (
      ("flash_attention", "decode_attention"), True),
     ("kimi-k2 W8A8 (2 layers)", "kimi-k2-1t-a32b",
      dict(n_layers=2, moe_w8a8=True),
-     ("flash_attention", "decode_attention", "int8_grouped_matmul"), False),
+     ("flash_attention", "decode_attention", "int8_grouped_matmul",
+      "int8_grouped_matmul_wgmma"), True),
     ("llama4-scout (8 of 48 layers)", "llama4-scout-17b-a16e",
      dict(n_layers=8), ("flash_attention", "decode_attention"), True),
     ("internvl2-26b", "internvl2-26b", {},
@@ -1519,7 +1544,7 @@ def _int8_shapes():
     """The grouped int8 GEMM at the served W8A8 shapes: kimi-k2's three
     products (w1 and w3 share a shape) and llama4-scout's w1, at the
     prefill's capacity (8 prompts padded to 999 tokens) and a decode
-    step's (1 slot per expert). (label, E, C, K, N)."""
+    step's (1 slot per expert). (label, arch, E, C, K, N)."""
     from repro_torch.configs import get_config
     from repro_torch.models.moe import capacity
 
@@ -1532,23 +1557,65 @@ def _int8_shapes():
             for w in prods:
                 K, N = ((cfg.d_model, cfg.d_ff) if w == "w1"
                         else (cfg.d_ff, cfg.d_model))
-                out.append((f"{arch} {step} {w}", cfg.n_experts,
+                out.append((f"{arch} {step} {w}", arch, cfg.n_experts,
                             capacity(cfg, n), K, N))
     return out
 
 
-def check_and_time_int8(dev, seed):
-    """Phase 3 and 6 for the grouped int8 GEMM: bit for bit against its
-    plain version (f64 products, exact) at the served shapes and on
-    strided views; then its time beside its bound (bytes of a, b and the
-    int32 output at 3.35 TB/s against 2 E C K N operations at 1,979 TOP/s
-    int8), the plain version's and, where torch._int_mm's shape rules
-    allow (more than 16 rows), a loop of one _int_mm per expert (a
-    yardstick the port never calls; not one PyTorch call, so it stays out
-    of `library_ms`)."""
+def routed_a(gen, arch, C, K, dev):
+    """The a [E, C, K] of a served decode step of len(PROMPT_LENS) tokens:
+    each token's top-k experts by random router scores (a stable sort, as
+    the port routes), its copy ranked within its expert in token order by
+    the port's own `dispatch_slots` and dropped past C, random int8 in the
+    rows that hold a copy and zeros elsewhere, as the MoE layer's zero-
+    filled buffer gives. Returns (a, experts filled)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import dispatch_slots
+
+    cfg = get_config(arch)
+    E, n = cfg.n_experts, len(PROMPT_LENS)
+    scores = torch.rand((n, E), generator=gen, device=dev)
+    idx = torch.sort(scores, dim=-1, descending=True,
+                     stable=True)[1][:, :cfg.top_k]
+    slot, keep = dispatch_slots(idx, C)
+    a = torch.zeros((E, C, K), dtype=torch.int8, device=dev)
+    e, r = idx.reshape(-1)[keep], slot[keep]
+    a[e, r] = torch.randint(-128, 128, (int(keep.sum()), K), generator=gen,
+                            device=dev, dtype=torch.int8)
+    return a, int(a.ne(0).flatten(1).any(1).sum())
+
+
+def int8_bounds(E, C, K, N, filled=None):
+    """(ms, by) of out = a @ b at [E,C,K] x [E,K,N]: a read once, the int32
+    output written once, and b of the `filled` experts (every expert
+    when None) read once, against 2 filled C K N operations at 1,979 TOP/s
+    int8."""
+    f = E if filled is None else filled
+    return bound(E * C * K + f * K * N + 4 * E * C * N, 2.0 * f * C * K * N,
+                 PEAK_INT8_OPS)
+
+
+def check_and_time_int8(dev, seed, bf16_bmm=False):
+    """Phase 3 and 6 for the grouped int8 GEMM: both kernels, the K-major
+    wgmma one (the served path: the port stores the expert weights
+    K-major) and the N-major mma.sync one, bit for bit against the plain
+    version (f64 products, exact) on strided views and at every served
+    shape, dense (random a: every expert filled) and, at the decode
+    shapes, routed (the a of a served decode step: only the experts its
+    tokens chose are non-zero). Then each kernel's time at each shape,
+    the two in turns (K, N, N, K), beside the dense bound (bytes of a,
+    b and the int32 output at 3.35 TB/s against 2 E C K N operations at
+    1,979 TOP/s int8) and at a routed shape the bound on the filled
+    experts' bytes; the plain version's time; the K-major kernel's
+    pre-pass alone (which token tiles hold a token, the work list); where
+    torch._int_mm's shape rules allow (more than 16 rows), a loop of one
+    _int_mm per expert (a yardstick the port never calls; not one
+    PyTorch call, so it stays out of `library_ms`); with `bf16_bmm`, the
+    same product by bf16 `torch.bmm` (the bf16 experts' product)."""
     from repro_torch.kernels.int8_grouped_matmul import kernel as gk
     from repro_torch.kernels.int8_grouped_matmul.ref import \
         int8_grouped_matmul_ref
+    from repro_torch.models.moe import kmajor
 
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
 
@@ -1556,48 +1623,95 @@ def check_and_time_int8(dev, seed):
         return torch.randint(-128, 128, shape, generator=gen, device=dev,
                              dtype=torch.int8)
 
+    def check(label, a, b):
+        want = int8_grouped_matmul_ref(a, b)
+        errs = []
+        for name, bb in (("K-major", kmajor(b)), ("N-major", b)):
+            got = gk.int8_grouped_matmul(a, bb)
+            errs.append((got.long() - want.long()).abs().max().item())
+            print(f"  int8_grouped_matmul {name} {label}: max_abs_err "
+                  f"{errs[-1]} {'ok' if errs[-1] == 0 else 'MISMATCH'}",
+                  flush=True)
+            if errs[-1] != 0 or got.dtype != torch.int32:
+                fail(f"int8_grouped_matmul ({name}) disagrees with its "
+                     f"plain version at {label}")
+        return max(errs)
+
     # Strided views: a window of a wider buffer with the expert axis not
-    # outermost, b's columns cut from a wider matrix.
+    # outermost; b's columns cut from a wider matrix, and (K-major) a
+    # window of a wider K-major storage.
     a = rand((217, 16, 5120 + 64))[5:5 + 208, :, 32:32 + 5120].transpose(0, 1)
     b = rand((16, 5120, 2048 + 128))[:, :, 64:64 + 2048]
-    same = torch.equal(gk.int8_grouped_matmul(a, b),
-                       int8_grouped_matmul_ref(a, b))
-    print(f"  int8_grouped_matmul on strided views a {tuple(a.shape)} "
-          f"strides {a.stride()}, b {tuple(b.shape)} strides {b.stride()}: "
-          f"{'bit for bit' if same else 'MISMATCH'}", flush=True)
+    worst = check(f"on strided views a {tuple(a.shape)} strides "
+                  f"{a.stride()}, b {tuple(b.shape)} strides {b.stride()}",
+                  a, b)
+    bk = rand((16, 2048 + 48, 5120 + 96))[:, 16:16 + 2048,
+                                          32:32 + 5120].transpose(1, 2)
+    same = torch.equal(gk.int8_grouped_matmul(a, bk),
+                       int8_grouped_matmul_ref(a, bk))
+    print(f"  int8_grouped_matmul K-major on a window of a K-major storage "
+          f"(strides {bk.stride()}): {'bit for bit' if same else 'MISMATCH'}",
+          flush=True)
     if not same:
-        fail("int8_grouped_matmul disagrees with its plain version on "
-             "strided views")
-    del a, b
+        fail("int8_grouped_matmul disagrees with its plain version on a "
+             "window of a K-major b")
+    del a, b, bk
     timed = {}
-    for label, E, C, K, N in _int8_shapes():
-        a, b = rand((E, C, K)), rand((E, K, N))
-        got = gk.int8_grouped_matmul(a, b)
-        want = int8_grouped_matmul_ref(a, b)
-        err = (got.long() - want.long()).abs().max().item()
-        print(f"  int8_grouped_matmul {label} [{E},{C},{K}] x [{E},{K},{N}]"
-              f": max_abs_err {err} {'ok' if err == 0 else 'MISMATCH'}",
-              flush=True)
-        if err != 0 or got.dtype != torch.int32:
-            fail(f"int8_grouped_matmul disagrees with its plain version at "
-                 f"{label}")
-        del got, want
-        ms, eager = time_ms([lambda: gk.int8_grouped_matmul(a, b)], n=20)
-        plain_ms = _event_ms(lambda: int8_grouped_matmul_ref(a, b), 2)
-        loop_ms = (_event_ms(lambda: [torch._int_mm(a[e], b[e])
-                                      for e in range(E)], 3)
-                   if C > 16 else None)
-        bnd, by = bound(a.numel() + b.numel() + 4 * E * C * N,
-                        2.0 * E * C * K * N, PEAK_INT8_OPS)
-        timed[label] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
-                            max_abs_err=err,
-                            bound_ms=bnd, bound_by=by, int_mm_loop_ms=loop_ms,
-                            shape=f"[{E},{C},{K}] x [{E},{K},{N}]")
-        print(f"    {ms:.4f} ms (eager {eager:.4f}), bound {bnd:.4f} ms "
-              f"({by}), plain {plain_ms:.1f} ms, _int_mm loop "
-              + ("n/a (C <= 16)" if loop_ms is None else f"{loop_ms:.3f} ms"),
-              flush=True)
-        del a, b
+    for label, arch, E, C, K, N in _int8_shapes():
+        b = rand((E, K, N))
+        cases = [("", rand((E, C, K)), None)]
+        if C == 1:
+            a_r, filled = routed_a(gen, arch, C, K, dev)
+            print(f"  {label}: a served decode step of {len(PROMPT_LENS)} "
+                  f"tokens fills {filled} of {E} experts", flush=True)
+            cases.append((" routed", a_r, filled))
+        b_k = kmajor(b)
+        for tag, a, filled in cases:
+            key = label + tag
+            err = max(worst, check(f"{key} [{E},{C},{K}] x [{E},{K},{N}]",
+                                   a, b))
+            ms_k, eager_k = time_ms([lambda: gk.int8_grouped_matmul(a, b_k)],
+                                    n=20)
+            ms_n, _ = time_ms([lambda: gk.int8_grouped_matmul(a, b)], n=20)
+            ms_n2, _ = time_ms([lambda: gk.int8_grouped_matmul(a, b)], n=20)
+            ms_k2, _ = time_ms([lambda: gk.int8_grouped_matmul(a, b_k)],
+                               n=20)
+            pre_ms, _ = time_ms([lambda: gk.prepass(a, b_k)], n=20)
+            plain_ms = _event_ms(lambda: int8_grouped_matmul_ref(a, b_k), 2)
+            loop_ms = (_event_ms(lambda: [torch._int_mm(a[e], b[e])
+                                          for e in range(E)], 3)
+                       if C > 16 else None)
+            bnd, by = int8_bounds(E, C, K, N)
+            t = dict(ms=(ms_k + ms_k2) / 2, ms_turns=[ms_k, ms_k2],
+                     eager_ms=eager_k, nmajor_ms=(ms_n + ms_n2) / 2,
+                     nmajor_ms_turns=[ms_n, ms_n2], prepass_ms=pre_ms,
+                     plain_ms=plain_ms, max_abs_err=err, bound_ms=bnd,
+                     bound_by=by, int_mm_loop_ms=loop_ms,
+                     token_tile=gk.plan(E, C, K, N).token_tile,
+                     shape=f"[{E},{C},{K}] x [{E},{K},{N}]")
+            if filled is not None:
+                t["filled_experts"] = filled
+                t["routed_bound_ms"], t["routed_bound_by"] = int8_bounds(
+                    E, C, K, N, filled)
+            if bf16_bmm:
+                a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+                t["bf16_bmm_ms"] = _event_ms(lambda: torch.bmm(a16, b16), 5)
+                del a16, b16
+            timed[key] = t
+            share = (f", {100 * t['routed_bound_ms'] / t['ms']:.1f} % of the "
+                     f"routed bound {t['routed_bound_ms']:.4f} ms "
+                     f"({t['routed_bound_by']})" if filled is not None
+                     else "")
+            print(f"    K-major (wgmma) {ms_k:.4f} / {ms_k2:.4f} ms (eager "
+                  f"{eager_k:.4f}; pre-pass {pre_ms:.4f}), N-major (mma.sync) "
+                  f"{ms_n:.4f} / {ms_n2:.4f} ms; dense bound {bnd:.4f} ms "
+                  f"({by}), {100 * bnd / t['ms']:.1f} % of it{share}; plain "
+                  f"{plain_ms:.1f} ms, _int_mm loop "
+                  + ("n/a (C <= 16)" if loop_ms is None
+                     else f"{loop_ms:.3f} ms")
+                  + (f", bf16 bmm {t['bf16_bmm_ms']:.4f} ms" if bf16_bmm
+                     else ""), flush=True)
+        del a, b, b_k, cases
         torch.cuda.empty_cache()
     return timed
 
@@ -1744,6 +1858,21 @@ def serve_moe_io(dev, seed, label, arch, replace, kernels, traced):
     launches, runs = serve_counted(engine, reqs, kernels, label, seed)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  {label}: peak {peak:.1f} GiB allocated", flush=True)
+    int8 = cfg.moe_w8a8
+    if int8:
+        # The experts are stored K-major: every int8 launch must have gone
+        # to the wgmma kernel, none to the N-major one.
+        n_all, n_wgmma = launches["int8_grouped_matmul"], launches[INT8_WGMMA]
+        print(f"  {label}: int8 launches {n_all}: {n_wgmma} K-major (wgmma), "
+              f"{n_all - n_wgmma} N-major (mma.sync); TTFT ms "
+              f"{[round(r['ttft_s'] * 1e3, 2) for r in runs]} and tok/s "
+              f"{[round(r['tok_per_s'], 1) for r in runs]} against the N-major "
+              f"kernel's "
+              f"{W8A8_BEFORE['ttft_ms']} and {W8A8_BEFORE['tok_per_s']} "
+              f"(from PERF.md)", flush=True)
+        if n_wgmma != n_all:
+            fail(f"{label}: {n_all - n_wgmma} int8 launches went to the "
+                 f"N-major kernel")
     out = {"config": cfg.name, "layers": cfg.n_layers,
            "params_b": n_par / 1e9, "gib_allocated": alloc, "peak_gib": peak,
            "init_s": init_s, "ttft_ms": [r["ttft_s"] * 1e3 for r in runs],
@@ -1751,7 +1880,7 @@ def serve_moe_io(dev, seed, label, arch, replace, kernels, traced):
            "launches": {n: c for n, c in launches.items() if c}}
     if traced:
         phase(f"7. device trace of one served {label} batch")
-        out["trace"] = trace_batch(engine, reqs)
+        out["trace"] = trace_batch(engine, reqs, INT8_TRACE if int8 else None)
         out["launch_counts"] = moe_launches_per_step(engine)
     del engine
     gc.collect()
@@ -1828,6 +1957,20 @@ def run_musicgen(dev, seed) -> dict:
 
 
 INT8_SOURCE = "src/repro/models/moe.py:64"
+# The launch count of the K-major wgmma kernel among the int8 GEMM's
+# (`int8_grouped_matmul.wgmma_launches`), under this name in the counts.
+INT8_WGMMA = "int8_grouped_matmul_wgmma"
+# The served kimi-k2 W8A8 batch on the N-major mma.sync kernel, before the
+# int8 GEMM's Hopper redesign (copied from PERF.md §6): TTFT ms and tok/s,
+# printed beside this run's and never in the JSON line.
+W8A8_BEFORE = {"ttft_ms": (114.0, 115.4), "tok_per_s": (445.5, 488.7)}
+# The int8 GEMM's kernels in a trace, by name: the product and its
+# pre-pass (int8_grouped_matmul_wgmma.cu), and the activation quantisation
+# that feeds it (`_quant_act`'s abs, amax, div, round and cast kernels are
+# not told apart from other elementwise work, so it is not listed).
+INT8_TRACE = {"int8 wgmma product (gmm_kernel)": ("::gmm_kernel",),
+              "int8 pre-pass (flag_kernel, compact_kernel)":
+                  ("flag_kernel", "compact_kernel")}
 
 
 def moe_and_io(dev=None, seed: int = 0) -> dict:
@@ -1871,8 +2014,11 @@ def moe_and_io(dev=None, seed: int = 0) -> dict:
 def merge_moe_io_rows(rows, moe_io):
     """Phase 10's numbers in the kernel table: the attention rows gain the
     new paths' launches and their times at the new shapes ("moe_io"); the
-    grouped int8 GEMM gets its own row, timed at kimi-k2's decode-step w1
-    shape (the most launched), its other shapes under "shapes"."""
+    grouped int8 GEMM gets its own row for its served kernel, the K-major
+    wgmma one, timed at kimi-k2's routed decode-step w1 shape (the most
+    launched: the a of a served step, its bound on the filled experts'
+    bytes), its other shapes under "shapes", and the N-major kernel,
+    on no served path since, beside it at the same shape ("beside")."""
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in moe_io["launches"].items()
                    if n.get(r["name"])}
@@ -1882,22 +2028,31 @@ def merge_moe_io_rows(rows, moe_io):
             key = "flash" if r["name"].startswith("flash") else "decode"
             r["moe_io"] = {label: t[key]
                            for label, t in moe_io["attention"].items()}
-    by_path = {p: n["int8_grouped_matmul"]
-               for p, n in moe_io["launches"].items()
-               if n.get("int8_grouped_matmul")}
+    by_path = {p: n[INT8_WGMMA] for p, n in moe_io["launches"].items()
+               if n.get(INT8_WGMMA)}
     timed = moe_io["int8"]
-    head = timed["kimi-k2-1t-a32b decode w1"]
+    head = timed["kimi-k2-1t-a32b decode w1 routed"]
     rows.append(dict(
         name="int8_grouped_matmul", route="cuda",
-        source="src/repro_torch/kernels/csrc/int8_grouped_matmul.cu",
+        source="src/repro_torch/kernels/csrc/int8_grouped_matmul_wgmma.cu",
         replaces=INT8_SOURCE,
         replaces_note="an XLA einsum of the W8A8 experts, not a Pallas "
                       "kernel: the port's own kernel",
         launches=sum(by_path.values()), launches_by_path=by_path,
-        library_ms=None,
-        **{k: v for k, v in head.items()
-           if k not in ("int_mm_loop_ms", "max_abs_err")},
+        library_ms=None, shape=head["shape"] + " routed",
+        ms=head["ms"], eager_ms=head["eager_ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["routed_bound_ms"], bound_by=head["routed_bound_by"],
+        dense_bound_ms=head["bound_ms"], prepass_ms=head["prepass_ms"],
+        filled_experts=head["filled_experts"],
         max_abs_err=max(t["max_abs_err"] for t in timed.values()),
+        beside=dict(name="int8_grouped_matmul (N-major, mma.sync)",
+                    route="cuda",
+                    source="src/repro_torch/kernels/csrc/"
+                           "int8_grouped_matmul.cu",
+                    launches=sum(n.get("int8_grouped_matmul", 0)
+                                 - n.get(INT8_WGMMA, 0)
+                                 for n in moe_io["launches"].values()),
+                    ms=head["nmajor_ms"]),
         shapes=timed))
     return rows
 

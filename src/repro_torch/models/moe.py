@@ -11,6 +11,14 @@ with per-expert, per-output-channel f32 scales, activations are quantised
 per row on the fly, and the three products are int8 x int8 -> int32 on
 the port's grouped int8 GEMM (`kernels/int8_grouped_matmul`).
 
+The int8 expert weights keep the reference's shape [n, E, d_in, d_out]
+and values, in a K-major storage: each is `.transpose(-1, -2)` of a
+contiguous [n, E, d_out, d_in], so its stride on d_in (the products' K)
+is 1. The int8 `wgmma` takes its shared-memory operands K-major only
+(`kernels/csrc/int8_grouped_matmul_wgmma.cu`). It is a layout of the
+port, not a change of shape: every value, comparison and checkpoint is
+the reference's.
+
 Nothing here reads a tensor back to the host: the capacity comes from the
 shapes, and drops are masks, so a decode step issues its launches without
 waiting for the device.
@@ -41,13 +49,36 @@ def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """w [..., d_in, d_out] with the same shape and values, stored K-major
+    (unit stride on d_in); w itself when it already is."""
+    if w.stride(-2) == 1:
+        return w
+    return w.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def kmajor_experts(tree):
+    """A parameter tree whose W8A8 expert weights (the int8 w1/w3/w2 of a
+    MoE node, the one with `w1_s`) are stored K-major; every other leaf as
+    it was."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: kmajor_experts(v) for k, v in tree.items()}
+    if "w1_s" in tree:
+        for name in EXPERT_WEIGHTS:
+            if out[name].dtype == torch.int8:
+                out[name] = kmajor(out[name])
+    return out
+
+
 def moe_params(normal, full, cfg: ModelConfig, n: int) -> dict:
     """The reference's MoE tree for `n` stacked layers: router [n,d,E] f32
     (drawn in the model's dtype, then widened), w1/w3 [n,E,d,f] and w2
     [n,E,f,d], and `shared` (w1, w3, w2) when `shared_expert_ff` is set.
     With `moe_w8a8`, w1/w3/w2 are int8 beside f32 scales `*_s` [n,E,1,out],
     each expert quantised from its own draw in the model's dtype, so no
-    layer of unquantised experts is ever held. `normal(shape, fan_in)` and
+    layer of unquantised experts is ever held, into the K-major storage
+    (see the module note). `normal(shape, fan_in)` and
     `full(value, shape)` are the decoder's drawing functions (the MoE tree
     has no constant leaves, so `full` goes unused)."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -58,7 +89,8 @@ def moe_params(normal, full, cfg: ModelConfig, n: int) -> dict:
         if not cfg.moe_w8a8:
             p[name] = normal((n, E, d_in, d_out), d_in)
             continue
-        q = torch.empty((n, E, d_in, d_out), dtype=torch.int8, device=dev)
+        q = torch.empty((n, E, d_out, d_in), dtype=torch.int8,
+                        device=dev).transpose(-1, -2)
         s = torch.empty((n, E, 1, d_out), dtype=torch.float32, device=dev)
         for i in range(n):
             for e in range(E):

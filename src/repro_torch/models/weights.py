@@ -5,7 +5,10 @@ tensors stacked on axis 0, exactly the port's layout, so loading is a
 plain copy of every leaf in its own dtype: bf16, f32 and the W8A8
 experts' int8 weights alike. The MoE tree (router, stacked experts, their
 scales, the shared expert) and the io variants' leaves (codebook embed and
-head [nq, V, d] / [nq, d, V], `prefix_proj`) come across unchanged.
+head [nq, V, d] / [nq, d, V], `prefix_proj`) come across unchanged, in
+shape and value; the W8A8 experts' int8 weights land in the port's
+K-major storage (`moe.kmajor_experts`), which `to_numpy` reads back
+value for value.
 
 bf16 has no numpy dtype without ml_dtypes, which the card's machine
 lacks. A bf16 leaf therefore leaves the port as its 16 bits in a 2-byte
@@ -18,6 +21,7 @@ import torch
 
 from .config import ModelConfig
 from .decoder import check_supported
+from .moe import kmajor_experts
 
 
 BF16_VOID = np.dtype("V2")
@@ -53,7 +57,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
             return {k: conv(v) for k, v in node.items()}
         return _tensor(node, device)
 
-    return conv(tree)
+    return kmajor_experts(conv(tree))
 
 
 def params_to_numpy(params: dict) -> dict:

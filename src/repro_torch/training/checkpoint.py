@@ -7,7 +7,9 @@ round-trips arbitrary nested dicts (tuples as '__<i>' keys). A bf16 tensor
 is written as its 16 bits in a 2-byte void array (`'V2'`), the bytes the
 reference's ml_dtypes bf16 leaves hold, and `np.load` gives back `V2` for
 both; the manifest records no dtype. `restore(path, device)` gives the
-tree back as tensors on `device`, a `V2` leaf as bf16.
+tree back as tensors on `device`, a `V2` leaf as bf16, and W8A8 expert
+weights in the port's K-major storage (`moe.kmajor_experts`): the same
+shapes and values.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models.moe import kmajor_experts
 from ..models.weights import _tensor, to_numpy
 
 
@@ -87,4 +90,4 @@ def restore(path: str, device: torch.device | str) -> tuple[Any, dict]:
         with np.load(os.path.join(path, f"shard_{i}.npz")) as z:
             for k in z.files:
                 flat[k] = _tensor(z[k], device)
-    return _unflatten(flat), manifest["meta"]
+    return kmajor_experts(_unflatten(flat)), manifest["meta"]

@@ -28,6 +28,7 @@ from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.models.moe import kmajor
 
 torch.set_num_threads(1)
 
@@ -803,14 +804,17 @@ def _int8(rng, shape, dev):
                                          dtype=np.int8)).to(dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("E,C,K,N", [
+INT8_SHAPES = [
     (4, 1, 7168, 2048), (4, 1, 2048, 7168), (3, 1, 5120, 8192),
     (3, 1, 8192, 5120), (2, 17, 7168, 2048), (2, 208, 7168, 2048),
     (2, 208, 2048, 7168), (2, 624, 5120, 8192), (2, 624, 8192, 5120),
     (5, 63, 80, 48), (3, 65, 144, 272), (1, 130, 16, 16), (2, 1000, 96, 160),
     (7, 129, 2048, 2048),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N", INT8_SHAPES)
 def test_int8_grouped_matmul_matches_plain(dev, E, C, K, N):
     """C of a decode step (1), 17, kimi-k2's prefill 208, llama4-scout's
     624 and ragged ones; K and N at the experts' widths (2048, 5120, 7168,
@@ -888,13 +892,154 @@ def test_int8_grouped_matmul_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N", INT8_SHAPES + [(1, 1, 16, 16),
+                                                   (1100, 1, 64, 32)])
+def test_int8_wgmma_matches_plain(dev, E, C, K, N):
+    """The K-major kernel (b with a unit stride on K, the port's expert
+    weights) at every shape of the N-major kernel's test: token tiles of
+    8 to 256 rows (C 1, 17, 63, 65, 129, 130, 208, 624, 1000), ragged K
+    and N; and one expert of one row, and more experts than the list
+    kernel's block has threads. Both launch counters move."""
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    from repro_torch.kernels.int8_grouped_matmul.ref import \
+        int8_grouped_matmul_ref
+
+    rng = np.random.default_rng(E * C + K + N)
+    a, b = _int8(rng, (E, C, K), dev), _int8(rng, (E, K, N), dev)
+    n0 = int8_grouped_matmul.launches
+    w0 = int8_grouped_matmul.wgmma_launches
+    got = int8_grouped_matmul(a, kmajor(b))
+    torch.cuda.synchronize()
+    assert int8_grouped_matmul.launches == n0 + 1
+    assert int8_grouped_matmul.wgmma_launches == w0 + 1
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert torch.equal(got, int8_grouped_matmul_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_int8_wgmma_extremes_and_strided_views(dev):
+    """The largest sums at K 8192 through the K-major kernel, and K-major
+    operands read through their strides: b a window of a wider K-major
+    storage (rows of N and K cut from both ends), a with its expert axis
+    not outermost."""
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    from repro_torch.kernels.int8_grouped_matmul.ref import \
+        int8_grouped_matmul_ref
+
+    E, C, K, N = 3, 70, 8192, 256
+    lo = torch.full((E, C, K), -128, dtype=torch.int8, device=dev)
+    for b_val, want in ((-128, K * 128 * 128), (127, -K * 128 * 127)):
+        b = kmajor(torch.full((E, K, N), b_val, dtype=torch.int8,
+                               device=dev))
+        got = int8_grouped_matmul(lo, b)
+        assert torch.equal(got, torch.full_like(got, want))
+    rng = np.random.default_rng(5)
+    E, C, K, N = 4, 45, 1040, 384
+    a = _int8(rng, (C + 7, E, K + 48), dev)[3:3 + C, :, 16:16 + K
+                                              ].transpose(0, 1)
+    store = _int8(rng, (E, N + 48, K + 96), dev)       # [E, N', K']
+    b = store[:, 16:16 + N, 32:32 + K].transpose(1, 2)
+    assert b.stride(1) == 1 and not b.is_contiguous()
+    w0 = int8_grouped_matmul.wgmma_launches
+    got = int8_grouped_matmul(a, b)
+    assert int8_grouped_matmul.wgmma_launches == w0 + 1
+    assert torch.equal(got, int8_grouped_matmul_ref(a.contiguous(),
+                                                    b.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["none", "alternate", "all-but-one", "all",
+                                  "token-tiles", "many-experts",
+                                  "many-token-tiles"])
+def test_int8_wgmma_skips_experts_with_no_token(dev, case):
+    """Experts whose rows of a are all zero (no token routed to them) at a
+    decode step's C 1 and across token tiles (C 624: three tiles of 208,
+    a zero tile beside a non-zero one, zero rows inside a live tile); over
+    2,100 experts (the list kernel's block takes 1,024 at a time) and 33
+    token tiles (C 8,300: past the 32 whose verdicts it keeps in a
+    mask). The output equals the plain version (zeros where a is zero,
+    over an output buffer that held garbage), and the pre-pass lists
+    exactly the items of the token tiles with a non-zero row."""
+    from repro_torch.kernels.int8_grouped_matmul import kernel as gk
+    from repro_torch.kernels.int8_grouped_matmul.ref import \
+        int8_grouped_matmul_ref
+
+    rng = np.random.default_rng(11)
+    E, C, K, N = {"many-experts": (2100, 1, 64, 160),
+                  "many-token-tiles": (3, 8300, 64, 160),
+                  "token-tiles": (8, 624, 2048, 640)}.get(case,
+                                                         (8, 1, 2048, 640))
+    a = _int8(rng, (E, C, K), dev)
+    if case == "alternate":
+        a[::2] = 0
+    elif case == "all-but-one":
+        a[torch.arange(E, device=dev) != 5] = 0
+    elif case == "all":
+        a.zero_()
+    elif case == "token-tiles":
+        a[0, 208:] = 0          # tiles 1 and 2 empty
+        a[1, :208] = 0          # tile 0 empty, tile 1 not, tile 2 empty
+        a[1, 416:] = 0
+        a[2, 100:300] = 0       # zero rows inside live tiles
+        a[3] = 0
+    elif case == "many-experts":
+        a[::3] = 0
+    elif case == "many-token-tiles":
+        a[0, 256 * 30:] = 0     # tiles 30-32 of expert 0 empty
+        a[1, :256 * 32] = 0     # only tile 32 of expert 1 holds tokens
+        a[2, 256 * 5:256 * 6] = 0
+    b = kmajor(_int8(rng, (E, K, N), dev))
+    torch.empty((E, C, N), dtype=torch.int32, device=dev).fill_(-7)
+    got = gk.int8_grouped_matmul(a, b)
+    assert torch.equal(got, int8_grouped_matmul_ref(a, b))
+    plan = gk.plan(E, C, K, N)
+    T = plan.token_tile
+    tiles = [a[:, t:t + T].ne(0).flatten(1).any(1)
+             for t in range(0, C, T)]
+    live = torch.stack(tiles, 1)                       # [E, token tiles]
+    assert live.shape[1] == plan.token_tiles
+    n_ch = -(-N // 128)
+    want = [int(live.sum()) * n_ch, int((~live).sum())]
+    assert gk.prepass(a, b).tolist() == want
+
+
+@pytest.mark.cuda
+def test_int8_grouped_matmul_refuses_other_layouts_of_b(dev):
+    """b needs a unit stride on K or on N with a 16-byte-aligned base and
+    16-byte-multiple other strides: a K-major b off by 1 byte, one whose
+    stride on N is 8 bytes off, and one with no unit stride raise
+    ValueError before any launch."""
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+
+    rng = np.random.default_rng(0)
+    E, C, K, N = 2, 8, 64, 32
+    a = _int8(rng, (E, C, K), dev)
+    n0 = int8_grouped_matmul.launches
+    w0 = int8_grouped_matmul.wgmma_launches
+    flat = torch.zeros(E * K * N + 64, dtype=torch.int8, device=dev)
+    bad = (flat[1:1 + E * K * N].view(E, N, K).transpose(1, 2),
+           torch.zeros(E * N * (K + 8), dtype=torch.int8,
+                       device=dev).as_strided((E, K, N),
+                                              (N * (K + 8), 1, K + 8)),
+           _int8(rng, (E, K, 2 * N), dev)[:, :, ::2])
+    for b in bad:
+        with pytest.raises(ValueError, match="16-byte"):
+            int8_grouped_matmul(a, b)
+    assert int8_grouped_matmul.launches == n0
+    assert int8_grouped_matmul.wgmma_launches == w0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("w8a8", [False, True])
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e"])
 def test_moe_apply_on_card_matches_cpu(dev, arch, w8a8):
     """moe_apply on CUDA tensors against device="cpu" on the same weights
     and input (f32 smoke widths, 128 tokens, so that copies drop): the
     same routes, the output at 2e-5. W8A8 runs its three products on the
-    int8 kernel and is held within one step of its second activation
+    K-major int8 kernel and is held within one step of its second activation
     quantisation (an ulp of silu can move h / scale across a rounding
     boundary) plus 2e-5."""
     import dataclasses
@@ -915,9 +1060,12 @@ def test_moe_apply_on_card_matches_cpu(dev, arch, w8a8):
         size=(2, 64, cfg.d_model)).astype(np.float32))
     want = moe.moe_apply(p, cfg, x)
     n0 = int8_grouped_matmul.launches
+    w0 = int8_grouped_matmul.wgmma_launches
     got = moe.moe_apply(p_dev, cfg, x.to(dev))
     torch.cuda.synchronize()
     assert int8_grouped_matmul.launches == n0 + (3 if w8a8 else 0)
+    # The experts are stored K-major: all three go to the wgmma kernel.
+    assert int8_grouped_matmul.wgmma_launches == w0 + (3 if w8a8 else 0)
     xf = x.reshape(-1, cfg.d_model)
     assert torch.equal(moe.route(p_dev, cfg, xf.to(dev))[1].cpu(),
                        moe.route(p, cfg, xf)[1])

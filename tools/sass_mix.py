@@ -10,7 +10,9 @@ instructions and the most frequent opcodes, by `cuobjdump -sass`. The
 chunk loop is unrolled inside, so the counts are close to one warp's
 instructions per chunk. Given library names (`flash_attention_bwd`, ...),
 it prints the same for every kernel function of each, so that, say, the
-warpgroup products show as HGMMA.
+warpgroup products show as HGMMA (bf16) or IGMMA (int8), the warp-level
+ones as HMMA or IMMA (`int8_grouped_matmul_wgmma` against the N-major
+`int8_grouped_matmul`).
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ def main(libraries: list[str]) -> int:
                              r"([A-Z][A-Z0-9_.]+)", body)
             mix = collections.Counter(op.split(".")[0] for op in ops)
             print(f"{name} {mangled or fn}: {len(ops)} instructions "
-                  f"(tensor-core: HGMMA {mix['HGMMA']}, HMMA {mix['HMMA']}); "
+                  f"(tensor-core: HGMMA {mix['HGMMA']}, HMMA {mix['HMMA']}, "
+                  f"IGMMA {mix['IGMMA']}, IMMA {mix['IMMA']}); "
                   + ", ".join(f"{k} {v}" for k, v in mix.most_common(24)))
     return 0
 

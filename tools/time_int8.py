@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Time the grouped int8 GEMM of the W8A8 experts on one card, beside what
-the bf16 experts run instead and the per-expert library loop.
+"""Time the grouped int8 GEMM of the W8A8 experts on one card: the K-major
+`wgmma` kernel (the served one) beside the N-major `mma.sync` kernel
+on the same operands, and beside what the bf16 experts run instead.
 
     python3 tools/time_int8.py
 
 For each served W8A8 shape (chip_smoke.py's `_int8_shapes`: kimi-k2's
 products at a prefill of 8 prompts padded to 999 tokens and at a decode
-step, llama4-scout's w1), on random int8 operands: the kernel's time
-(CUDA events, 10 calls after a warm-up), whether it equals the plain
-version bit for bit, its bound (bytes of a, b and the int32 output at
-3.35 TB/s against 2 E C K N operations at 1,979 TOP/s int8), the same
-product in bf16 by `torch.bmm` (the bf16 MoE path's expert product) and,
-where torch._int_mm takes the shape (more than 16 rows), a loop of one
-_int_mm per expert. The card's name and power limit come first.
+step, llama4-scout's w1), on random int8 operands (dense: every expert
+filled) and, at the decode shapes, on the a of a served decode step
+(routed: only the experts its 8 tokens chose are non-zero,
+`chip_smoke.routed_a`): both kernels bit for bit against the plain
+version, each kernel's time in turns (K-major, N-major, N-major,
+K-major; CUDA-graph replays of 20 calls), the K-major kernel's pre-pass
+alone, the dense bound (bytes of a, b and the int32 output at 3.35 TB/s
+against 2 E C K N operations at 1,979 TOP/s int8) and, routed, the bound
+on the filled experts' bytes; the same product in bf16 by `torch.bmm`
+(the bf16 MoE path's expert product) and, where torch._int_mm takes the
+shape (more than 16 rows), a loop of one _int_mm per expert. This is
+`chip_smoke.check_and_time_int8` with the bf16 column; the card's name
+and power limit come first, a summary table last.
 """
 from __future__ import annotations
 
@@ -27,9 +34,6 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels.int8_grouped_matmul import kernel as gk  # noqa: E402
-from repro_torch.kernels.int8_grouped_matmul.ref import \
-    int8_grouped_matmul_ref  # noqa: E402
 
 
 def main() -> int:
@@ -38,32 +42,17 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for label, E, C, K, N in cs._int8_shapes():
-        a = torch.randint(-128, 128, (E, C, K), generator=gen, device=dev,
-                          dtype=torch.int8)
-        b = torch.randint(-128, 128, (E, K, N), generator=gen, device=dev,
-                          dtype=torch.int8)
-        same = torch.equal(gk.int8_grouped_matmul(a, b),
-                           int8_grouped_matmul_ref(a, b))
-        ms = cs._event_ms(lambda: gk.int8_grouped_matmul(a, b), 10)
-        bnd, by = cs.bound(a.numel() + b.numel() + 4 * E * C * N,
-                           2.0 * E * C * K * N, cs.PEAK_INT8_OPS)
-        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        bf16 = cs._event_ms(lambda: torch.bmm(a16, b16), 5)
-        del a16, b16
-        loop = "n/a (C <= 16)"
-        if C > 16:
-            loop_ms = cs._event_ms(
-                lambda: [torch._int_mm(a[e], b[e]) for e in range(E)], 3)
-            loop = f"{loop_ms:.4f} ms"
-        print(f"{label} [{E},{C},{K}] x [{E},{K},{N}]: "
-              f"{'equal' if same else 'MISMATCH'}, {ms:.4f} ms, bound "
-              f"{bnd:.4f} ms ({by}), bf16 bmm {bf16:.4f} ms, _int_mm loop "
-              f"{loop}", flush=True)
-        del a, b
-        torch.cuda.empty_cache()
+    timed = cs.check_and_time_int8(torch.device("cuda"), 0, bf16_bmm=True)
+    print("shape | K-major ms | N-major ms | pre-pass ms | bound ms (by) | "
+          "share | bf16 bmm ms")
+    for label, t in timed.items():
+        bnd, by = ((t["routed_bound_ms"], t["routed_bound_by"] + ", routed")
+                   if "routed_bound_ms" in t else (t["bound_ms"],
+                                                   t["bound_by"]))
+        print(f"{label} {t['shape']} | {t['ms']:.4f} | {t['nmajor_ms']:.4f} "
+              f"| {t['prepass_ms']:.4f} | {bnd:.4f} ({by}) | "
+              f"{100 * bnd / t['ms']:.1f} % | {t['bf16_bmm_ms']:.4f}",
+              flush=True)
     return 0
 
 
