@@ -107,18 +107,42 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the live state; the backward's time at the training shape, hd 112
      and hd 32, each beside its bound, its plain version and SDPA's
      backward, and the forward with and without LSE.
+  12. train the recurrent models: the backward kernels of both scans
+     (ssm_scan_bwd, rwkv6_wkv_bwd), on the forward kernels' chunk states,
+     against their plain versions (the stepwise formulas, in f32) at the
+     training shape (B 8, T 2048, zero state, no final-state gradient;
+     B is cut, and the cut printed, where the plain version's T + 1 states
+     would not fit half the free memory), at T 999 from a nonzero state
+     with a final-state gradient, at T 77 from zeros with one, and rwkv6
+     also at the models' weak decay: f32 at 2e-5 of max|want|, bf16 under
+     phase 11's criteria, two launches bitwise equal; a full-width train
+     step, kernels vs plain, under phase 11.2's criteria at B 4 x T 999
+     (a ragged last chunk) for rwkv6-7b at 2 layers and zamba2-7b at 7
+     (one super-block of 6 Mamba2 layers, the shared attention at hd 112,
+     one tail layer), and the backward kernels alone, the scan kernels'
+     outputs set to the plain path's values, every f32 leaf at 1e-4 of
+     the plain path (rwkv6's end-to-end f32 leaves are printed, not held:
+     its group norm divides by rows' rms down to ~1e-3); both models in bf16 at phase 5's depths train 10
+     steps of PackedStream(vocab, 2048, 8) through the launcher's `train`
+     (the loss finite and falling; exact launch counts per step of every
+     kernel of the path), step ms, tokens/s, peak memory and one profiled
+     step; and each backward's time at the training shape beside its
+     bound, its plain version and the forward with and without its chunk
+     states.
 
-Phases 8, 9, 10 and 11 print their numbers as JSON lines {"risk": ...},
-{"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...} and
-{"training": ...}. The line before the last is the kernel table as JSON;
-the last line is {"ok": true, "device": {...}}. Without a CUDA device the
-run fails. To run phase 9, 10 or 11 alone on a card: python -c "import
-chip_smoke as cs; cs.plan_and_replan()" (or cs.moe_and_io(),
-cs.train_and_check()).
+Phases 8-12 print their numbers as JSON lines {"risk": ...},
+{"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...},
+{"training": ...} and {"training_recurrent": ...}. The line before the
+last is the kernel table as JSON; the last line is {"ok": true,
+"device": {...}}. Without a CUDA device the run fails. To run phase 9,
+10, 11 or 12 alone on a card: python -c "import chip_smoke as cs;
+cs.plan_and_replan()" (or cs.moe_and_io(), cs.train_and_check(),
+cs.train_recurrent()).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -147,6 +171,12 @@ ARCH = "qwen2-0.5b"
 RECURRENT = {"rwkv6-7b": (("rwkv6_wkv",), 4),
              "zamba2-7b": (("ssm_scan", "flash_attention",
                             "decode_attention"), 7)}
+# The served recurrent batches' TTFT ms and tok/s in PERF.md §5's table
+# (the run after the scans' Hopper redesign, NVIDIA H100 80GB HBM3 at
+# 700 W): printed beside this run's for reading only, never in a JSON line.
+SERVED_AFTER_SCAN_REDESIGN = {
+    "rwkv6-7b": ((389.61, 334.01, 334.05), (180.1, 203.9, 149.2)),
+    "zamba2-7b": ((742.53, 728.28, 726.76), (66.5, 66.1, 63.1))}
 PROMPT_LENS = [600 + 57 * i for i in range(8)]     # 600 .. 999
 NEW_TOKENS = 32
 # Kernels are held against their plain versions run in f32 on the same
@@ -399,12 +429,14 @@ def check_attention_hd112(dev, seed):
     return main, errs
 
 
-def scan_inputs(kind, dtype, gen, dev, T=None):
-    """Inputs of a scan at the served batch's shape (B 8, T 999), drawn as
-    the reference's kernel sweep draws them (tests/test_kernels.py), and a
-    nonzero initial state: ssm_scan at zamba2's widths (nh 112, hp 64,
-    N 64), rwkv6_wkv at rwkv6-7b's (H 64, hd 64)."""
-    B, T = len(PROMPT_LENS), T or max(PROMPT_LENS)
+def scan_inputs(kind, dtype, gen, dev, T=None, B=None, decay_shift=-1.5):
+    """Inputs of a scan at the served batch's shape (B 8, T 999, or the
+    B and T given), drawn as the reference's kernel sweep draws them
+    (tests/test_kernels.py), and a nonzero initial state: ssm_scan at
+    zamba2's widths (nh 112, hp 64, N 64), rwkv6_wkv at rwkv6-7b's (H 64,
+    hd 64), its log decay -exp(N(0, 0.5) + decay_shift) (-6: the models'
+    own weak decay, w0 = -6)."""
+    B, T = B or len(PROMPT_LENS), T or max(PROMPT_LENS)
 
     def randn(shape, scale=1.0, dt=torch.float32):
         x = torch.randn(shape, generator=gen, device=dev) * scale
@@ -421,7 +453,7 @@ def scan_inputs(kind, dtype, gen, dev, T=None):
                 randn((nh,)), randn((B, nh, hp, N)))
     H, hd = 64, 64
     r, k, v = (randn((B, T, H, hd), 0.5, dtype) for _ in range(3))
-    lw = (-torch.exp(randn((B, T, H, hd), 0.5) - 1.5)).to(dtype)
+    lw = (-torch.exp(randn((B, T, H, hd), 0.5) + decay_shift)).to(dtype)
     return r, k, v, lw, randn((H, hd), 0.5), randn((B, H, hd, hd))
 
 
@@ -475,11 +507,14 @@ def kernel_ops() -> dict:
     from repro_torch.kernels.int8_grouped_matmul.ops import \
         int8_grouped_matmul
     from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
+    from repro_torch.kernels.rwkv6_wkv_bwd.ops import rwkv6_wkv_bwd
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan_bwd.ops import ssm_scan_bwd
     return {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
-            "ssm_scan": ssm_scan, "rwkv6_wkv": rwkv6_wkv,
+            "ssm_scan": ssm_scan, "ssm_scan_bwd": ssm_scan_bwd,
+            "rwkv6_wkv": rwkv6_wkv, "rwkv6_wkv_bwd": rwkv6_wkv_bwd,
             "int8_grouped_matmul": int8_grouped_matmul}
 
 
@@ -509,6 +544,10 @@ def serve_counted(engine, reqs, kernels, label, seed):
           f"{[round(r['ttft_s'] * 1e3, 2) for r in runs]}, tok/s "
           f"{[round(r['tok_per_s'], 1) for r in runs]}, wall s "
           f"{[round(r['wall_s'], 3) for r in runs]}", flush=True)
+    if label in SERVED_AFTER_SCAN_REDESIGN:
+        ttft, tps = SERVED_AFTER_SCAN_REDESIGN[label]
+        print(f"  after the scans' redesign (from PERF.md §5): TTFT ms "
+              f"{list(ttft)}, tok/s {list(tps)}", flush=True)
     for r in reqs:
         if len(r.output) != NEW_TOKENS or not all(
                 0 <= t < cfg.vocab_size for t in r.output):
@@ -2224,34 +2263,56 @@ def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def check_train_step(dev, seed):
-    """Phase 11.2: qwen2-0.5b at full width, 2 of 24 layers, one training
-    batch: loss and every gradient leaf, kernels vs plain, in f32 and in
-    bf16 (the same bf16-rounded weights)."""
+def check_train_step(dev, seed, arch=ARCH, n_layers=2, B=TRAIN_B,
+                     T=TRAIN_T):
+    """Phase 11.2 (and 12.2): `arch` at full width, `n_layers` of its
+    layers (qwen2-0.5b: 2 of 24), one training batch of B x T: loss and
+    every gradient leaf, kernels vs plain, in f32 and in bf16 (the same
+    bf16-rounded weights). A config with scans also takes the f32
+    gradients with the scan kernels' outputs set to the plain path's
+    values (`scan_values_from_plain`): the backward kernels alone, every
+    leaf at STEP_F32_REL_L2 of the plain path. rwkv6's end-to-end f32
+    leaves are printed, not held: its per-head group norm divides y by
+    its rms, ~1e-3 on some rows where the median is ~1e2, so the forward
+    kernel's f32 rounding of y (within 2e-5, phase 6) moves some leaves
+    by ~1e-2."""
     from repro_torch.configs import get_config
     from repro_torch.models import decoder
     from repro_torch.training.data import DataConfig, PackedStream
     from repro_torch.training.train_loop import batch_on
 
-    cfg16 = dataclasses.replace(get_config(ARCH), n_layers=2)
+    cfg16 = dataclasses.replace(get_config(arch), n_layers=n_layers)
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
     params16 = decoder.init_params(
         torch.Generator(device=dev).manual_seed(seed), cfg16)
     params32 = _tree_map(lambda x: x.float(), params16)
     batch = batch_on(PackedStream(DataConfig(
-        vocab_size=cfg16.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B,
+        vocab_size=cfg16.vocab_size, seq_len=T, batch_size=B,
         seed=0)).batch(0), dev)
     names = [n for n, _ in sorted(_named(params16))]
     lk, gk = _grads(params32, cfg32, batch, True)
     lp, gp = _grads(params32, cfg32, batch, False)
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
     worst = max((_rel_l2(a, b), n) for n, a, b in zip(names, gk, gp))
-    ok = loss_rel <= 1e-5 and worst[0] <= STEP_F32_REL_L2
-    print(f"  f32 {ARCH} (2 layers) train step B={TRAIN_B} T={TRAIN_T}, "
+    held = cfg16.token_mixer != "rwkv6"
+    ok = loss_rel <= 1e-5 and (worst[0] <= STEP_F32_REL_L2 or not held)
+    isolated = None
+    if cfg16.token_mixer in ("mamba2", "rwkv6"):
+        with scan_values_from_plain():
+            _, gh = _grads(params32, cfg32, batch, True)
+        isolated = max((_rel_l2(a, b), n) for n, a, b in zip(names, gh, gp))
+        ok = ok and isolated[0] <= STEP_F32_REL_L2
+        del gh
+    print(f"  f32 {arch} ({n_layers} layers) train step B={B} T={T}, "
           f"kernels vs plain: loss {lk.item():.6f} vs {lp.item():.6f} "
           f"(rel {loss_rel:.2e}, tol 1e-05); worst gradient leaf "
-          f"{worst[1]} rel L2 {worst[0]:.3e} (tol {STEP_F32_REL_L2:g}) "
-          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+          f"{worst[1]} rel L2 {worst[0]:.3e} "
+          + (f"(tol {STEP_F32_REL_L2:g})" if held else "(printed, not held)")
+          + ("" if isolated is None else
+             f"; the backward kernels on the plain path's scan values: "
+             f"worst leaf {isolated[1]} rel L2 {isolated[0]:.3e} (tol "
+             f"{STEP_F32_REL_L2:g})")
+          + f" {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail("the f32 train step's kernels and plain paths disagree")
     # bf16: the f32 gradient of the same bf16-rounded weights (the plain
@@ -2261,7 +2322,8 @@ def check_train_step(dev, seed):
     l16k, g16k = _grads(params16, cfg16, batch, True)
     l16p, g16p = _grads(params16, cfg16, batch, False)
     out = {"f32_loss_rel": loss_rel, "f32_worst_leaf_rel_l2": worst[0],
-           "bf16_leaves": {}}
+           "f32_worst_leaf": worst[1], "f32_leaves_held": held,
+           "f32_bwd_kernels_on_plain_values": isolated, "bf16_leaves": {}}
     bad = []
     for n, a, b, t in zip(names, g16k, g16p, gt):
         rk, rp = _rel_l2(a, t), _rel_l2(b, t)
@@ -2269,7 +2331,7 @@ def check_train_step(dev, seed):
         if rk > 2 * rp + E2E_TOL:
             bad.append(n)
     worst16 = max(out["bf16_leaves"].items(), key=lambda kv: kv[1][0])
-    print(f"  bf16 {ARCH} (2 layers) train step: loss kernels "
+    print(f"  bf16 {arch} ({n_layers} layers) train step: loss kernels "
           f"{l16k.item():.5f}, plain {l16p.item():.5f}, f32 "
           f"{lt.item():.5f}; worst leaf {worst16[0]}: rel L2 to the f32 "
           f"gradient kernels {worst16[1][0]:.3e}, plain "
@@ -2280,6 +2342,47 @@ def check_train_step(dev, seed):
     del params16, params32, g16k, g16p, gt, gp
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def scan_values_from_plain():
+    """The models' scan ops launch the kernels as ever (the forward, and
+    under autograd the backward), but their outputs take, bit for bit,
+    the values of the plain path's chunked scans (`use_kernels=False`):
+    the gradient that reaches each backward kernel is then the plain
+    path's own, so the backward kernels are held apart from the forward
+    kernels' rounding."""
+    from repro_torch.models import mamba2, rwkv6
+
+    def ssd_plain(x, Bm, Cm, dt, A, D, S0):
+        if S0 is None:
+            S0 = x.new_zeros((x.shape[0], x.shape[2], x.shape[3],
+                              Bm.shape[2]))
+        y, S = mamba2._ssd_chunked(dt * A, x, Bm, Cm, dt, S0)
+        return y + D[:, None] * x, S
+
+    def wkv_plain(r, k, v, lw, u, S0):
+        if S0 is None:
+            S0 = r.new_zeros((r.shape[0], r.shape[2], r.shape[3],
+                              r.shape[3]))
+        return rwkv6._wkv_chunked(r, k, v, lw, u, S0)
+
+    def valued(op, plain):
+        def run(*args):
+            outs = op(*args)
+            with torch.no_grad():
+                vals = plain(*args)
+            # v + (o - o): exactly v's value, o's gradient.
+            return tuple(v + (o - o.detach()) for v, o in zip(vals, outs))
+        return run
+
+    saved = mamba2.ssm_scan, rwkv6.rwkv6_wkv
+    mamba2.ssm_scan = valued(saved[0], ssd_plain)
+    rwkv6.rwkv6_wkv = valued(saved[1], wkv_plain)
+    try:
+        yield
+    finally:
+        mamba2.ssm_scan, rwkv6.rwkv6_wkv = saved
 
 
 def _named(tree, prefix=""):
@@ -2303,14 +2406,46 @@ def _step_ms(*histories) -> list[float]:
     return out
 
 
+def profile_step(step_fn, params, opt_state, batch):
+    """One more training step under torch.profiler: its wall ms, the
+    device's busy ms and share, launches and the twelve kernels that take
+    the most device time; None when the profiler saw no CUDA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        float(out[2]["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        print("  device trace: not measured (the profiler saw no CUDA "
+              "kernels)")
+        return None
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    trace = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy=busy_ms / wall_ms,
+                 launches=sum(e.count for e in rows),
+                 top=[(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                      for e in sorted(rows, key=lambda e:
+                                      -e.self_device_time_total)[:12]])
+    print(f"  one traced step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * trace['busy']:.1f}% busy), "
+          f"{trace['launches']} kernel launches", flush=True)
+    for key, t, n in trace["top"]:
+        print(f"    {t:9.3f} ms  {n:6d}x  {key}")
+    return trace
+
+
 def train_on_card(dev, seed, ckpt_dir):
     """Phase 11.3-11.4: qwen2-0.5b whole in bf16 trains 20 steps through
     the launcher's `train` (10 steps, a checkpoint, then 10 more from the
     live state), launch counts per step, step times, peak memory and one
     step under torch.profiler; then the step-10 checkpoint restored
     bitwise and 3 steps from it against 3 from the live state."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.training import checkpoint
     from repro_torch.training.data import DataConfig, PackedStream
@@ -2362,37 +2497,8 @@ def train_on_card(dev, seed, ckpt_dir):
     if not all(np.isfinite(losses)):
         fail(f"non-finite losses {losses}")
 
-    # One more step under the profiler.
-    step_fn = make_train_step(cfg, opt)
-    batch = batch_on(stream.batch(TRAIN_STEPS), dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = step_fn(p10, s10, batch)
-        float(out[2]["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    del out
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    trace = None
-    if rows:
-        trace = dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                     busy=busy_ms / wall_ms,
-                     launches=sum(e.count for e in rows),
-                     top=[(e.key[:80], e.self_device_time_total / 1e3,
-                           e.count) for e in sorted(
-                               rows, key=lambda e: -e.self_device_time_total
-                           )[:12]])
-        print(f"  one traced step: wall {wall_ms:.1f} ms, device busy "
-              f"{busy_ms:.1f} ms ({100 * trace['busy']:.1f}% busy), "
-              f"{trace['launches']} kernel launches", flush=True)
-        for key, t, n in trace["top"]:
-            print(f"    {t:9.3f} ms  {n:6d}x  {key}")
-    else:
-        print("  device trace: not measured (the profiler saw no CUDA "
-              "kernels)")
+    trace = profile_step(make_train_step(cfg, opt), p10, s10,
+                         batch_on(stream.batch(TRAIN_STEPS), dev))
 
     # Phase 11.4: the step-10 checkpoint, restored into fresh tensors.
     saved, meta = checkpoint.restore(ckpt_dir, dev)
@@ -2545,6 +2651,340 @@ def train_and_check(dev=None, seed: int = 0) -> dict:
                 bwd_row=bwd_row)
 
 
+# Phase 12: train the recurrent models on the card. The scans' backward
+# kernels are held against their plain versions (the stepwise formulas,
+# which keep T + 1 states: at the training shape B is cut where they would
+# not fit half the free memory, and the cut is printed) at the training
+# shape (B 8, T 2048) from a zero state with no final-state gradient (the
+# training path), at the served T 999 from a nonzero state with one, and at
+# T 77 from zeros with one; rwkv6 also at the models' weak decay. f32
+# gradients at 2e-5 of max|want|; the bf16 gradients (dx, dBm, dCm; dr, dk,
+# dv, dlw) under phase 11's criteria, the plain bf16 path being the plain
+# version's f32 gradient rounded to bf16 (what it returns on bf16 inputs);
+# the f32 gradients of a bf16 call (dt, A, D, u, the state) at 2e-5. Then a
+# full-width train step kernels vs plain (phase 11.2's criteria) at T 999
+# (a ragged last chunk), B 4, and 10 steps of each model in bf16 through
+# `train()` at phase 5's depths.
+RECURRENT_TRAIN = {"rwkv6-7b": 4, "zamba2-7b": 7}
+# Train-step depths.
+RECURRENT_STEP = {"rwkv6-7b": 2, "zamba2-7b": 7}
+RECURRENT_STEPS = 10
+STEP_B, STEP_T = 4, 999
+SCAN_GRADS = {"ssm_scan": ("dx", "dBm", "dCm", "ddt", "dA", "dD", "dstate"),
+              "rwkv6_wkv": ("dr", "dk", "dv", "dlw", "du", "dstate")}
+# (label, B, T, a nonzero state in, a final-state gradient, log-decay shift)
+SCAN_BWD_CASES = [("train", TRAIN_B, TRAIN_T, False, False, -1.5),
+                  ("T 999", 8, 999, True, True, -1.5),
+                  ("T 77", 8, 77, False, True, -1.5),
+                  ("T 999 weak decay", 8, 999, True, True, -6.0)]
+
+
+def recurrent_path(arch: str) -> str:
+    return f"{arch} train ({RECURRENT_STEPS} steps)"
+
+
+def _scan_fns(name):
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv_bwd import kernel as wbk
+    from repro_torch.kernels.rwkv6_wkv_bwd.ref import rwkv6_wkv_bwd_ref
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan_bwd import kernel as sbk
+    from repro_torch.kernels.ssm_scan_bwd.ref import ssm_scan_bwd_ref
+    if name == "ssm_scan":
+        return sk.ssm_scan, sbk.ssm_scan_bwd, ssm_scan_bwd_ref, 3
+    return wk.rwkv6_wkv, wbk.rwkv6_wkv_bwd, rwkv6_wkv_bwd_ref, 4
+
+
+def _plain_fits(name, B, T) -> int:
+    """The largest B' <= B (halving) whose T + 1 plain-version states take
+    at most half the free device memory."""
+    row = (112 * 64 * 64 if name == "ssm_scan" else 64 * 64 * 64) * 4
+    free = torch.cuda.mem_get_info()[0]
+    while B > 1 and (T + 1) * B * row > free / 2:
+        B //= 2
+    return B
+
+
+def check_scan_bwd(dev, seed):
+    """Phase 12.1: each scan's backward kernel, on the forward kernel's
+    chunk states, against its plain version; two launches bitwise equal.
+    Returns the worst errors by kernel and dtype and the training shape's
+    f32 inputs of each kernel (for 12.4)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    errs, timed = {}, {}
+    for name in SCAN_GRADS:
+        fwd, bwd, plain, n_cast = _scan_fns(name)
+        for label, B, T, with_state, with_ds, shift in SCAN_BWD_CASES:
+            if "weak" in label and name == "ssm_scan":
+                continue
+            if T == TRAIN_T:
+                cut = _plain_fits(name, B, T)
+                if cut < B:
+                    print(f"  {name} {label}: B cut from {B} to {cut}, so "
+                          f"that the plain version's {T + 1} states fit "
+                          f"half the free memory", flush=True)
+                B = cut
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{name} {label} {str(dtype).split('.')[-1]}"
+                *args, s0 = scan_inputs(name, dtype, gen, dev, T=T, B=B,
+                                        decay_shift=shift)
+                state = s0 if with_state else None
+                dy = torch.randn(args[0].shape, generator=gen,
+                                 device=dev).to(dtype)
+                ds = (torch.randn(s0.shape, generator=gen, device=dev)
+                      if with_ds else None)
+                _, _, states = fwd(*args, state, with_states=True)
+                got = bwd(*args, states, dy, ds)
+                again = bwd(*args, states, dy, ds)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{tag}: two launches of the backward differ")
+                del again
+                args32 = [*f32(*args[:n_cast]), *args[n_cast:]]
+                want = plain(*args32, state, dy.float(), ds)
+                worst, bad = {}, []
+                for gname, g, w in zip(SCAN_GRADS[name], got, want):
+                    if g.dtype == torch.float32:
+                        err = (g - w).abs().max().item()
+                        rel = err / max(w.abs().max().item(), 1e-30)
+                        ok = rel <= BWD_F32_REL
+                        key = "f32"
+                        errs[name, "f32_abs"] = max(
+                            errs.get((name, "f32_abs"), 0.0), err)
+                    else:
+                        # The plain bf16 path: the plain f32 gradient
+                        # rounded to bf16, as the plain version returns it.
+                        rel = bwd_row_rel(g, w, [w])
+                        dist = _rel_l2(g.float(), w)
+                        dist_plain = _rel_l2(w.to(dtype).float(), w)
+                        ok = (rel <= BWD_BF16_ROW_REL
+                              and dist <= 2 * dist_plain)
+                        key = "bf16"
+                        errs[name, "bf16_over_plain"] = max(
+                            errs.get((name, "bf16_over_plain"), 0.0),
+                            dist / max(dist_plain, 1e-30))
+                    errs[name, key] = max(errs.get((name, key), 0.0), rel)
+                    worst[gname] = rel
+                    if not ok:
+                        bad.append(gname)
+                print(f"  {tag} B={B} T={T}, state "
+                      f"{'in' if with_state else 'zeros'}, d(state_out) "
+                      f"{'nonzero' if with_ds else 'zero'}: "
+                      f"bitwise repeat ok; errors (f32: of max|want|, tol "
+                      f"{BWD_F32_REL:g}; bf16: per row, tol "
+                      f"{BWD_BF16_ROW_REL:g}, and 2x the plain bf16 L2) "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                      + (" ok" if not bad else f" MISMATCH {bad}"),
+                      flush=True)
+                if bad:
+                    fail(f"{tag}: {bad} disagree with the plain version")
+                if label == "train" and dtype == torch.float32:
+                    timed[name] = (args, s0, states, dy)
+                del got, want, states, args, args32
+                torch.cuda.empty_cache()
+    return errs, timed
+
+
+def train_recurrent_on_card(arch, dev, seed):
+    """Phase 12.3: `arch` at published widths and phase 5's depth, bf16,
+    trains RECURRENT_STEPS steps of PackedStream(vocab, 2048, 8, seed 0)
+    through the launcher's `train`, with exact launch counts per step of
+    every kernel of its path, step times, peak memory and one profiled
+    step."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import _hybrid_shape
+    from repro_torch.training.data import DataConfig, PackedStream
+    from repro_torch.training.optimizer import AdamWConfig, leaves
+    from repro_torch.training.train_loop import batch_on, make_train_step, \
+        train
+
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=RECURRENT_TRAIN[arch])
+    opt = AdamWConfig(**TRAIN_OPT)
+    stream = PackedStream(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=TRAIN_T, batch_size=TRAIN_B,
+                                     seed=0))
+    # Per step: each layer's scan runs forward twice under remat (the
+    # hybrid's tail layers once) and backward once; the hybrid's shared
+    # attention once per super-block, likewise.
+    r = 2 if cfg.remat else 1
+    if cfg.attn_every:
+        n_super, tail = _hybrid_shape(cfg)
+        per_step = {"ssm_scan": r * n_super * cfg.attn_every + tail,
+                    "ssm_scan_bwd": cfg.n_layers,
+                    "flash_attention": r * n_super,
+                    "flash_attention_bwd": n_super}
+    else:
+        per_step = {"rwkv6_wkv": r * cfg.n_layers,
+                    "rwkv6_wkv_bwd": cfg.n_layers}
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, hist, state = train(cfg, opt, stream, RECURRENT_STEPS, rng=gen,
+                                log_every=1, device=dev, return_state=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: op.launches for name, op in ops.items()}
+    losses = [h["loss"] for h in hist]
+    ms = _step_ms(hist)
+    med = float(np.median(ms[2:]))
+    n_par = sum(t.numel() for t in leaves(params))
+    print(f"  {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers, "
+          f"{n_par / 1e9:.3f} B parameters, bf16) {RECURRENT_STEPS} steps "
+          f"of B={TRAIN_B} T={TRAIN_T}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    print(f"  step ms {[round(x, 1) for x in ms]}; median of steps 3-"
+          f"{RECURRENT_STEPS} {med:.1f} ms, "
+          f"{TRAIN_B * TRAIN_T / med * 1e3:.0f} tokens/s; peak {peak:.2f} "
+          f"GiB allocated; launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"{arch}: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name, n in per_step.items():
+        if launches[name] != n * RECURRENT_STEPS:
+            fail(f"{arch}: {name} launched {launches[name]} times in "
+                 f"{RECURRENT_STEPS} steps, want {n} a step")
+    extra = {k: v for k, v in launches.items() if v and k not in per_step}
+    if extra:
+        fail(f"{arch}: kernels off the training path launched: {extra}")
+    print(f"  launches per step as expected: {per_step}", flush=True)
+    trace = profile_step(make_train_step(cfg, opt), params, state,
+                         batch_on(stream.batch(RECURRENT_STEPS), dev))
+    result = dict(config=cfg.name, layers=cfg.n_layers, params_b=n_par / 1e9,
+                  batch=TRAIN_B, seq=TRAIN_T, steps=RECURRENT_STEPS,
+                  losses=losses, step_ms=ms, median_step_ms=med,
+                  tokens_per_s=TRAIN_B * TRAIN_T / med * 1e3, peak_gib=peak,
+                  launches=launches, launches_per_step=per_step, trace=trace)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def time_scan_bwd(timed):
+    """Phase 12.4: each backward kernel at the training shape beside its
+    bound, its plain version and the forward with and without its chunk
+    states: saving the states costs the forward (with - without) and one
+    layer's states of memory while remat recomputes that layer; computing
+    them again in the backward would cost the forward with states once
+    more. The bound reads every input of the gradient once (x, the
+    decays' and products' operands, dy; not the chunk states, which the
+    design chooses to keep: their read is printed apart, `states_read_ms`)
+    and writes every gradient once; its flops are the stepwise backward's
+    own, 10 per state element per step (the state gradient's update,
+    G B or K v, G^T x or K^T k, S^T dy, <G, S>: one multiply-add each),
+    plus one per decay, in 3xTF32 units at 495 TFLOP/s as phase 6
+    bounds the forwards (and at the f32 rate, `bound_f32_ms`). No PyTorch
+    call computes these functions (`library_ms` null)."""
+    rows = {}
+    for name, (args, s0, states, dy) in timed.items():
+        fwd, bwd, plain, _ = _scan_fns(name)
+        x = args[0]
+        T = x.shape[1]
+        ms, eager = time_ms([lambda: bwd(*args, states, dy)], n=6)
+        fwd_ms = time_ms([lambda: fwd(*args, None)], n=12)[0]
+        fwd_states_ms = time_ms([lambda: fwd(*args, None, with_states=True)],
+                                n=12)[0]
+        plain_ms = _event_ms(lambda: plain(*args, None, dy), 1)
+        n_in = (sum(a.numel() * a.element_size() for a in args)
+                + dy.numel() * dy.element_size())
+        states_read_ms = (states.numel() * states.element_size()
+                          / PEAK_BYTES * 1e3)
+        n_out = (sum(a.numel() * a.element_size() for a in args)
+                 + s0.numel() * 4)
+        decays = args[3].numel() if name == "ssm_scan" else x.numel()
+        flops = 10.0 * T * s0.numel() + decays
+        b, by = bound(n_in + n_out, 3 * flops, PEAK_TF32_FLOPS)
+        bytes_ms = bound(n_in + n_out, 0.0)[0]
+        row = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms, bound_ms=b,
+                   bound_by=by, bound_peak="3xTF32 at 495 TFLOP/s",
+                   bound_bytes_ms=bytes_ms,
+                   bound_f32_ms=bound(n_in + n_out, flops,
+                                      PEAK_F32_FLOPS)[0],
+                   library_ms=None, fwd_ms=fwd_ms,
+                   fwd_with_states_ms=fwd_states_ms,
+                   chunk_states_gib=states.numel() * 4 / 2 ** 30,
+                   states_read_ms=states_read_ms,
+                   shape="x".join(str(n) for n in x.shape) + " f32, from "
+                         "zeros")
+        print(f"  {name}_bwd [{row['shape']}]: {ms:.4f} ms (eager "
+              f"{eager:.4f}), bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% "
+              f"of it; bytes alone {bytes_ms:.4f} ms; at the f32 rate "
+              f"{row['bound_f32_ms']:.4f} ms), plain "
+              f"{plain_ms:.1f} ms, library none; forward {fwd_ms:.4f} ms, "
+              f"with chunk states {fwd_states_ms:.4f} ms "
+              f"({row['chunk_states_gib']:.2f} GiB of states, read once "
+              f"at 3.35 TB/s: {states_read_ms:.4f} ms)", flush=True)
+        rows[name] = row
+    return rows
+
+
+def train_recurrent(dev=None, seed: int = 0) -> dict:
+    """Phase 12: train the recurrent models on the card. Returns
+    {"training_recurrent": ..., "rows": the kernel table's two backward
+    rows}; fails on any check."""
+    dev = dev or torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase("12. train recurrent: the scans' backward vs their plain versions")
+    errs, timed_inputs = check_scan_bwd(dev, seed)
+    phase("12. train recurrent: full-width train steps, kernels vs plain")
+    ops = kernel_ops()
+    steps = {}
+    for arch, n_layers in RECURRENT_STEP.items():
+        for op in ops.values():
+            op.launches = 0
+        steps[arch] = check_train_step(dev, seed, arch, n_layers, STEP_B,
+                                       STEP_T)
+        steps[arch]["kernel_launches"] = {k: op.launches
+                                          for k, op in ops.items()
+                                          if op.launches}
+        print(f"  kernel launches in the four steps: "
+              f"{steps[arch]['kernel_launches']}", flush=True)
+        want = (("ssm_scan", "ssm_scan_bwd") if arch == "zamba2-7b"
+                else ("rwkv6_wkv", "rwkv6_wkv_bwd"))
+        if not all(steps[arch]["kernel_launches"].get(k) for k in want):
+            fail(f"{arch}: the kernel path's train step did not launch "
+                 f"{want}")
+    runs = {}
+    for arch in RECURRENT_TRAIN:
+        phase(f"12. train {arch} on the card")
+        runs[arch] = train_recurrent_on_card(arch, dev, seed)
+    phase("12. train recurrent: kernel times")
+    timed = time_scan_bwd(timed_inputs)
+    del timed_inputs
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"  phase 12 took {wall:.1f}s", flush=True)
+    rows = []
+    for name, arch in (("ssm_scan", "zamba2-7b"), ("rwkv6_wkv", "rwkv6-7b")):
+        n = runs[arch]["launches"][f"{name}_bwd"]
+        rows.append(dict(
+            name=f"{name}_bwd", route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}_bwd.cu",
+            replaces=SOURCES[name],
+            replaces_note=f"the backward of the {name} kernel; the "
+                          f"reference differentiates its XLA scan instead",
+            launches=n, launches_by_path={recurrent_path(arch): n},
+            max_abs_err=errs[name, "f32_abs"],
+            f32_max_rel_err=errs[name, "f32"],
+            bf16_max_row_rel_err=errs[name, "bf16"], **timed[name]))
+    return dict(training_recurrent=dict(
+        runs=runs, train_step_checks=steps, wall_s=wall,
+        scan_bwd_errors={f"{k[0]} {k[1]}": v for k, v in errs.items()},
+        times=timed), rows=rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2642,6 +3082,21 @@ def main(argv=None) -> int:
     rows.insert(1, trained["bwd_row"])
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"training": trained["training"]}))
+
+    recurrent = train_recurrent(dev, args.seed)
+    for arch, run in recurrent["training_recurrent"]["runs"].items():
+        for r in rows:
+            n = run["launches"].get(r["name"], 0)
+            if n and r["name"] in run["launches_per_step"]:
+                r["launches_by_path"][recurrent_path(arch)] = n
+                r["launches"] += n
+    at = {r["name"]: i for i, r in enumerate(rows)}
+    for row in recurrent["rows"]:
+        rows.insert(at[row["name"][:-len("_bwd")]] + 1, row)
+        at = {r["name"]: i for i, r in enumerate(rows)}
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"training_recurrent":
+                      recurrent["training_recurrent"]}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

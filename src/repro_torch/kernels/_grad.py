@@ -1,7 +1,8 @@
-"""The guard of the kernels that have no backward yet: autograd cannot
-see through a ctypes launch, so a gradient asked of one would be dropped
-without a word. A host-side check of grad mode and `requires_grad`: no
-device sync."""
+"""Autograd around the ctypes kernels. Autograd cannot see through a
+ctypes launch: a kernel either sits inside a `torch.autograd.Function`
+whose backward launches its backward kernel, or refuses a gradient
+(`refuse_grad`), so that none is dropped without a word. Host-side
+checks only: no device sync."""
 from __future__ import annotations
 
 import torch
@@ -9,13 +10,25 @@ import torch
 
 def refuse_grad(kernel: str, why: str, *tensors: torch.Tensor | None) -> None:
     """Raise NotImplementedError when grad mode is on and an input requires
-    a gradient, which `kernel` cannot give (`why` says what brings it)."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
+    a gradient, which `kernel` cannot give (`why` says why)."""
+    if wants_grad(*tensors):
         raise NotImplementedError(
             f"{kernel} has no backward kernel, and a gradient is asked of "
             f"its inputs: {why}")
 
-# What brings the backwards of the kernels that lack one.
-ITEM_8B = ("ROADMAP item 8b queues its backward (train rwkv6 and mamba2 / "
-           "zamba2 on the CPU, or with use_kernels=False, until then)")
+
+def wants_grad(*tensors: torch.Tensor | None) -> bool:
+    """Whether autograd records a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def unit_last(g: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """An output's gradient as a backward kernel reads it: zeros shaped as
+    `like` when autograd passes none, a copy only where the last stride is
+    not 1 (a gradient broadcast from a sum has stride 0)."""
+    if g is None:
+        return torch.zeros_like(like)
+    if g.stride(-1) != 1 or min(g.stride()) < 0:
+        return g.contiguous()
+    return g

@@ -100,8 +100,9 @@ __global__ void __launch_bounds__(WkvShape<HD>::NTH, 2) wkv_kernel(
     const T* __restrict__ r, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ lw,
     const float* __restrict__ u, const float* __restrict__ s0,
-    T* __restrict__ y, float* __restrict__ s_out, int T_len, int H,
-    Strides sr, Strides sk, Strides sv, Strides sl, Strides sy) {
+    T* __restrict__ y, float* __restrict__ s_out, float* __restrict__ states,
+    int T_len, int H, Strides sr, Strides sk, Strides sv, Strides sl,
+    Strides sy) {
   using W_ = WkvShape<HD>;
   constexpr int NTH = W_::NTH, E = W_::E, LD = W_::LD;
   constexpr int LDA = W_::LDA, STAGE = W_::STAGE, NTN = HD / 8;
@@ -166,6 +167,18 @@ __global__ void __launch_bounds__(WkvShape<HD>::NTH, 2) wkv_kernel(
     cp_async_wait<0>();
     __syncthreads();  // chunk c landed; every warp is done with chunk c - 1
     if (c0 + WQ < T_len) issue(c0 + WQ, st ^ 1);
+    if (states) {  // the state this chunk starts from, for the backward
+      float* sc = states + (sbase * ((T_len + WQ - 1) / WQ) +
+                            (int64_t)(c0 / WQ) * HD * HD);
+#pragma unroll
+      for (int j = 0; j < NTN; ++j) {
+        const int c = 8 * j + 2 * q;
+        sc[c * HD + v0 + g] = Sacc[j][0];
+        sc[(c + 1) * HD + v0 + g] = Sacc[j][1];
+        sc[c * HD + v0 + g + 8] = Sacc[j][2];
+        sc[(c + 1) * HD + v0 + g + 8] = Sacc[j][3];
+      }
+    }
     const float* Rs = smem + st * STAGE;
     const float* Ks = Rs + WQ * LD;
     const float* Vs = Ks + WQ * LD;
@@ -371,8 +384,8 @@ __global__ void __launch_bounds__(WkvShape<HD>::NTH, 2) wkv_kernel(
 template <typename T, int HD>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* lw, const float* u, const float* s0, void* y,
-                   float* s_out, int B, int T_len, int H, Strides sr,
-                   Strides sk, Strides sv, Strides sl, Strides sy,
+                   float* s_out, float* states, int B, int T_len, int H,
+                   Strides sr, Strides sk, Strides sv, Strides sl, Strides sy,
                    cudaStream_t stream) {
   using W_ = WkvShape<HD>;
   constexpr int smem = W_::SMEM_FLOATS * (int)sizeof(float);
@@ -382,23 +395,23 @@ cudaError_t launch(const void* r, const void* k, const void* v,
   wkv_kernel<T, HD><<<dim3(H, B), W_::NTH, smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(lw), u, s0,
-      static_cast<T*>(y), s_out, T_len, H, sr, sk, sv, sl, sy);
+      static_cast<T*>(y), s_out, states, T_len, H, sr, sk, sv, sl, sy);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* r, const void* k, const void* v,
                         const void* lw, const float* u, const float* s0,
-                        void* y, float* s_out, int B, int T_len, int H,
-                        Strides sr, Strides sk, Strides sv, Strides sl,
-                        Strides sy, cudaStream_t stream) {
+                        void* y, float* s_out, float* states, int B,
+                        int T_len, int H, Strides sr, Strides sk, Strides sv,
+                        Strides sl, Strides sy, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(r, k, v, lw, u, s0, y, s_out, B, T_len, H, sr, sk,
-                           sv, sl, sy, stream);
+      return launch<T, 32>(r, k, v, lw, u, s0, y, s_out, states, B, T_len, H,
+                           sr, sk, sv, sl, sy, stream);
     case 64:
-      return launch<T, 64>(r, k, v, lw, u, s0, y, s_out, B, T_len, H, sr, sk,
-                           sv, sl, sy, stream);
+      return launch<T, 64>(r, k, v, lw, u, s0, y, s_out, states, B, T_len, H,
+                           sr, sk, sv, sl, sy, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -409,12 +422,14 @@ cudaError_t dispatch_hd(int hd, const void* r, const void* k, const void* v,
 // r, k, v, lw [B, T, H, hd] and y [B, T, H, hd], each given by its element
 // strides in (b, h, t, d) order, with a unit last stride; r, k, v and lw
 // need 16-byte-aligned bases and strides. u [H, hd] f32 contiguous; s0 (may
-// be null: zeros) and s_out [B, H, hd, hd] f32 contiguous. Launches on
-// `stream` and returns cudaGetLastError() after the launch.
+// be null: zeros) and s_out [B, H, hd, hd] f32 contiguous; states (may be
+// null: not written) [B, H, ceil(T / 32), hd, hd] f32 contiguous, the state
+// each chunk starts from, which the backward (rwkv6_wkv_bwd.cu) reads.
+// Launches on `stream` and returns cudaGetLastError() after the launch.
 EXPORT int rwkv6_wkv_fwd(
     int dtype, int hd, const void* r, const void* k, const void* v,
     const void* lw, const void* u, const void* s0, void* y, void* s_out,
-    int B, int T, int H,
+    void* states, int B, int T, int H,
     int64_t sr_b, int64_t sr_h, int64_t sr_t, int64_t sr_d,
     int64_t sk_b, int64_t sk_h, int64_t sk_t, int64_t sk_d,
     int64_t sv_b, int64_t sv_h, int64_t sv_t, int64_t sv_d,
@@ -429,12 +444,13 @@ EXPORT int rwkv6_wkv_fwd(
   const float* uf = static_cast<const float*>(u);
   const float* s0f = static_cast<const float*>(s0);
   float* sof = static_cast<float*>(s_out);
+  float* stf = static_cast<float*>(states);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_hd<float>(hd, r, k, v, lw, uf, s0f, y, sof, B, T, H, sr,
-                              sk, sv, sl, sy, st);
+    return dispatch_hd<float>(hd, r, k, v, lw, uf, s0f, y, sof, stf, B, T, H,
+                              sr, sk, sv, sl, sy, st);
   if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, r, k, v, lw, uf, s0f, y, sof, B, T,
-                                      H, sr, sk, sv, sl, sy, st);
+    return dispatch_hd<__nv_bfloat16>(hd, r, k, v, lw, uf, s0f, y, sof, stf,
+                                      B, T, H, sr, sk, sv, sl, sy, st);
   return cudaErrorInvalidValue;
 }

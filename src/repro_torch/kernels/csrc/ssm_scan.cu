@@ -105,8 +105,8 @@ __global__ void __launch_bounds__(SsdShape<HP, N>::NTH, 2) ssd_kernel(
     const T* __restrict__ Cm, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ D,
     const float* __restrict__ s0, T* __restrict__ y,
-    float* __restrict__ s_out, int T_len, int nh, Strides sx, Strides3 sb,
-    Strides3 sc, Strides3 sd, Strides sy) {
+    float* __restrict__ s_out, float* __restrict__ states, int T_len, int nh,
+    Strides sx, Strides3 sb, Strides3 sc, Strides3 sd, Strides sy) {
   using S_ = SsdShape<HP, N>;
   constexpr int WPH = S_::WPH, NW = S_::NW, NTH = S_::NTH;
   constexpr int LDC = S_::LDC, LDX = S_::LDX, LDG = S_::LDG;
@@ -223,6 +223,16 @@ __global__ void __launch_bounds__(SsdShape<HP, N>::NTH, 2) ssd_kernel(
     }
     __syncthreads();
     if (!active) continue;
+    if (states) {  // the state this chunk starts from, for the backward
+      float* sc_ = states + (sbase * ((T_len + SQ - 1) / SQ) +
+                             (int64_t)(c0 / SQ) * HP * N);
+#pragma unroll
+      for (int j = 0; j < NTN; ++j) {
+        store2(sc_ + (p0 + g) * N + 8 * j + 2 * q, Sacc[j][0], Sacc[j][1]);
+        store2(sc_ + (p0 + g + 8) * N + 8 * j + 2 * q, Sacc[j][2],
+               Sacc[j][3]);
+      }
+    }
 
     // Y[i][jj]: rows 16 i + g (+ 8), columns p0 + 8 jj + 2 q (+ 1).
     float Y[2][2][4];
@@ -354,9 +364,10 @@ __global__ void __launch_bounds__(SsdShape<HP, N>::NTH, 2) ssd_kernel(
 template <typename T, int HP, int N>
 cudaError_t launch(const void* x, const void* Bm, const void* Cm,
                    const float* dt, const float* A, const float* D,
-                   const float* s0, void* y, float* s_out, int B, int T_len,
-                   int nh, Strides sx, Strides3 sb, Strides3 sc, Strides3 sd,
-                   Strides sy, cudaStream_t stream) {
+                   const float* s0, void* y, float* s_out, float* states,
+                   int B, int T_len, int nh, Strides sx, Strides3 sb,
+                   Strides3 sc, Strides3 sd, Strides sy,
+                   cudaStream_t stream) {
   using S_ = SsdShape<HP, N>;
   constexpr int smem = S_::SMEM_FLOATS * (int)sizeof(float);
   static unsigned long long done = 0;
@@ -366,27 +377,27 @@ cudaError_t launch(const void* x, const void* Bm, const void* Cm,
                          stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), dt, A, D, s0, static_cast<T*>(y), s_out,
-      T_len, nh, sx, sb, sc, sd, sy);
+      states, T_len, nh, sx, sb, sc, sd, sy);
   return cudaGetLastError();
 }
 
 template <typename T, int HP>
 cudaError_t dispatch_n(int N, const void* x, const void* Bm, const void* Cm,
                        const float* dt, const float* A, const float* D,
-                       const float* s0, void* y, float* s_out, int B,
-                       int T_len, int nh, Strides sx, Strides3 sb,
+                       const float* s0, void* y, float* s_out, float* states,
+                       int B, int T_len, int nh, Strides sx, Strides3 sb,
                        Strides3 sc, Strides3 sd, Strides sy,
                        cudaStream_t stream) {
+#define SSD_ARGS \
+  x, Bm, Cm, dt, A, D, s0, y, s_out, states, B, T_len, nh, sx, sb, sc, sd, \
+      sy, stream
   switch (N) {
     case 16:
-      return launch<T, HP, 16>(x, Bm, Cm, dt, A, D, s0, y, s_out, B, T_len,
-                               nh, sx, sb, sc, sd, sy, stream);
+      return launch<T, HP, 16>(SSD_ARGS);
     case 32:
-      return launch<T, HP, 32>(x, Bm, Cm, dt, A, D, s0, y, s_out, B, T_len,
-                               nh, sx, sb, sc, sd, sy, stream);
+      return launch<T, HP, 32>(SSD_ARGS);
     case 64:
-      return launch<T, HP, 64>(x, Bm, Cm, dt, A, D, s0, y, s_out, B, T_len,
-                               nh, sx, sb, sc, sd, sy, stream);
+      return launch<T, HP, 64>(SSD_ARGS);
     default:
       return cudaErrorInvalidValue;
   }
@@ -396,19 +407,18 @@ template <typename T>
 cudaError_t dispatch(int hp, int N, const void* x, const void* Bm,
                      const void* Cm, const float* dt, const float* A,
                      const float* D, const float* s0, void* y, float* s_out,
-                     int B, int T_len, int nh, Strides sx, Strides3 sb,
-                     Strides3 sc, Strides3 sd, Strides sy,
+                     float* states, int B, int T_len, int nh, Strides sx,
+                     Strides3 sb, Strides3 sc, Strides3 sd, Strides sy,
                      cudaStream_t stream) {
   switch (hp) {
     case 32:
-      return dispatch_n<T, 32>(N, x, Bm, Cm, dt, A, D, s0, y, s_out, B, T_len,
-                               nh, sx, sb, sc, sd, sy, stream);
+      return dispatch_n<T, 32>(N, SSD_ARGS);
     case 64:
-      return dispatch_n<T, 64>(N, x, Bm, Cm, dt, A, D, s0, y, s_out, B, T_len,
-                               nh, sx, sb, sc, sd, sy, stream);
+      return dispatch_n<T, 64>(N, SSD_ARGS);
     default:
       return cudaErrorInvalidValue;
   }
+#undef SSD_ARGS
 }
 
 }  // namespace
@@ -416,13 +426,15 @@ cudaError_t dispatch(int hp, int N, const void* x, const void* Bm,
 // x [B, T, nh, hp] and y [B, T, nh, hp], each given by its element strides
 // in (b, h, t, d) order; Bm and Cm [B, T, N] and dt [B, T, nh] by theirs in
 // axis order; A, D [nh] f32 contiguous; s0 (may be null: zeros) and s_out
-// [B, nh, hp, N] f32 contiguous. x, y, Bm and Cm need a unit last stride,
-// and x, Bm and Cm 16-byte-aligned bases and strides. Launches on `stream`
-// and returns cudaGetLastError() after the launch.
+// [B, nh, hp, N] f32 contiguous; states (may be null: not written) [B, nh,
+// ceil(T / 32), hp, N] f32 contiguous, the state each chunk starts from,
+// which the backward (ssm_scan_bwd.cu) reads. x, y, Bm and Cm need a unit
+// last stride, and x, Bm and Cm 16-byte-aligned bases and strides.
+// Launches on `stream` and returns cudaGetLastError() after the launch.
 EXPORT int ssm_scan_fwd(
     int dtype, int hp, int N, const void* x, const void* Bm, const void* Cm,
     const void* dt, const void* A, const void* D, const void* s0, void* y,
-    void* s_out, int B, int T, int nh,
+    void* s_out, void* states, int B, int T, int nh,
     int64_t sx_b, int64_t sx_h, int64_t sx_t, int64_t sx_d,
     int64_t sb_b, int64_t sb_t, int64_t sb_n,
     int64_t sc_b, int64_t sc_t, int64_t sc_n,
@@ -439,12 +451,13 @@ EXPORT int ssm_scan_fwd(
   const float* Df = static_cast<const float*>(D);
   const float* s0f = static_cast<const float*>(s0);
   float* sof = static_cast<float*>(s_out);
+  float* stf = static_cast<float*>(states);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch<float>(hp, N, x, Bm, Cm, dtf, Af, Df, s0f, y, sof, B, T,
-                           nh, sx, sb, sc, sd, sy, st);
+    return dispatch<float>(hp, N, x, Bm, Cm, dtf, Af, Df, s0f, y, sof, stf, B,
+                           T, nh, sx, sb, sc, sd, sy, st);
   if (dtype == kBFloat16)
     return dispatch<__nv_bfloat16>(hp, N, x, Bm, Cm, dtf, Af, Df, s0f, y, sof,
-                                   B, T, nh, sx, sb, sc, sd, sy, st);
+                                   stf, B, T, nh, sx, sb, sc, sd, sy, st);
   return cudaErrorInvalidValue;
 }

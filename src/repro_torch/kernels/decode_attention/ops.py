@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .._grad import ITEM_8B, refuse_grad
+from .._grad import refuse_grad
 from . import kernel
 from .ref import decode_attention_ref
 
@@ -29,7 +29,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pos = S - 1
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, k_pos, pos)
-    refuse_grad("decode_attention", ITEM_8B, q, k, v)
+    refuse_grad("decode_attention", "decoding is not trained (no training "
+                "path decodes, and the reference's Pallas kernel has no "
+                "VJP either)", q, k, v)
     out = kernel.decode_attention(q, k, v, k_pos, pos)
     decode_attention.launches += 1
     return out

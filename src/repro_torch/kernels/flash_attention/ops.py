@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .._grad import wants_grad
 from .._layout import aligned16
 from ..flash_attention_bwd.ops import flash_attention_bwd
 from . import kernel
@@ -60,8 +61,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_pos = torch.arange(Tk, dtype=torch.int32, device=q.device)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_pos, k_pos, window=window)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if wants_grad(q, k, v):
         return FlashAttention.apply(q, k, v, q_pos, k_pos, int(window))
     out = kernel.flash_attention(q, k, v, q_pos, k_pos, window=window)
     flash_attention.launches += 1

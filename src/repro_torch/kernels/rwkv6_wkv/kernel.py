@@ -6,9 +6,10 @@ one block per (b, head) sweeps 32-step chunks with the f32 state in
 registers, the decay between 16-step sub-chunks factorised into tensor-core
 products (3xTF32). This module checks the operands, allocates the output
 and the final state, and launches the kernel on the current stream
-through its C entry point. r, k, v and lw are read by 16-byte copies: a
-base or stride that is not a multiple of 16 bytes raises ValueError
-(there is no fallback).
+through its C entry point; for training it also writes the state each
+32-step chunk starts from, which the backward (`kernels.rwkv6_wkv_bwd`)
+reads. r, k, v and lw are read by 16-byte copies: a base or stride that
+is not a multiple of 16 bytes raises ValueError (there is no fallback).
 """
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ from .._layout import check_aligned
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
+CHUNK = 32                    # the kernels' chunk length
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_ARGTYPES = [_I, _I, *([_P] * 8), _I, _I, _I, *([_L] * 20), _P]
+_ARGTYPES = [_I, _I, *([_P] * 9), _I, _I, _I, *([_L] * 20), _P]
 
 
 @functools.cache
@@ -77,28 +79,31 @@ def _check(r, k, v, lw, u, state):
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               lw: torch.Tensor, u: torch.Tensor,
-              state: torch.Tensor | None = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              state: torch.Tensor | None = None, with_states: bool = False):
     """r, k, v, lw [B,T,H,hd] of one dtype, any 16-byte-aligned strides
     with a unit last one, 16-byte-aligned bases; u [H,hd]; state
     [B,H,hd,hd] contiguous f32 or None (zeros); all on one CUDA device.
     Returns (y [B,T,H,hd] contiguous in r's dtype, final state [B,H,hd,hd]
-    f32)."""
+    f32), and with `with_states` also the state each chunk starts from,
+    [B, H, ceil(T / CHUNK), hd, hd] f32."""
     _check(r, k, v, lw, u, state)
     B, T, H, hd = r.shape
     uf = u.to(torch.float32).contiguous()
     y = torch.empty(r.shape, dtype=r.dtype, device=r.device)
     s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    states = (torch.empty((B, H, -(-T // CHUNK), hd, hd), dtype=torch.float32,
+                          device=r.device) if with_states else None)
     with torch.cuda.device(r.device):
         err = _entry()(
             DTYPES[r.dtype], hd, r.data_ptr(), k.data_ptr(), v.data_ptr(),
             lw.data_ptr(), uf.data_ptr(),
             None if state is None else state.data_ptr(), y.data_ptr(),
-            s_out.data_ptr(), B, T, H,
+            s_out.data_ptr(), None if states is None else states.data_ptr(),
+            B, T, H,
             *bhtd_strides(r), *bhtd_strides(k), *bhtd_strides(v),
             *bhtd_strides(lw), *bhtd_strides(y),
             torch.cuda.current_stream(r.device).cuda_stream)
     if err:
         raise RuntimeError(f"rwkv6_wkv kernel launch failed: CUDA error "
                            f"{err}")
-    return y, s_out
+    return (y, s_out, states) if with_states else (y, s_out)

@@ -6,9 +6,11 @@ one block per two heads of a batch row sweeps 32-step chunks, computing
 each chunk's C B^T once for both heads, with every product in 3xTF32 on
 the tensor cores and the f32 state in registers. This module checks the
 operands, allocates the output and the final state, and launches the
-kernel on the current stream through its C entry point. x, Bm and Cm are
-read by 16-byte copies: a base or stride that is not a multiple of 16
-bytes raises ValueError (there is no fallback).
+kernel on the current stream through its C entry point; for training it
+also writes the state each 32-step chunk starts from, which the backward
+(`kernels.ssm_scan_bwd`) reads. x, Bm and Cm are read by 16-byte copies:
+a base or stride that is not a multiple of 16 bytes raises ValueError
+(there is no fallback).
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ from .._layout import check_aligned
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)          # hp
 STATE_DIMS = (16, 32, 64)     # N
+CHUNK = 32                    # the kernels' chunk length
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_ARGTYPES = [_I, _I, _I, *([_P] * 9), _I, _I, _I, *([_L] * 17), _P]
+_ARGTYPES = [_I, _I, _I, *([_P] * 10), _I, _I, _I, *([_L] * 17), _P]
 
 
 @functools.cache
@@ -89,13 +92,14 @@ def _check(x, Bm, Cm, dt, A, D, state):
 
 def ssm_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
              dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-             state: torch.Tensor | None = None
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+             state: torch.Tensor | None = None, with_states: bool = False):
     """x [B,T,nh,hp], Bm and Cm [B,T,N] of one dtype, unit last strides,
     16-byte-aligned bases and strides;
     dt [B,T,nh] f32, any strides; A, D [nh]; state [B,nh,hp,N] contiguous
     f32 or None (zeros); all on one CUDA device. Returns (y [B,T,nh,hp]
-    contiguous in x's dtype, D x included; final state [B,nh,hp,N] f32)."""
+    contiguous in x's dtype, D x included; final state [B,nh,hp,N] f32),
+    and with `with_states` also the state each chunk starts from, [B, nh,
+    ceil(T / CHUNK), hp, N] f32."""
     _check(x, Bm, Cm, dt, A, D, state)
     B, T, nh, hp = x.shape
     N = Bm.shape[2]
@@ -103,14 +107,17 @@ def ssm_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     Df = D.to(torch.float32).contiguous()
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     s_out = torch.empty((B, nh, hp, N), dtype=torch.float32, device=x.device)
+    states = (torch.empty((B, nh, -(-T // CHUNK), hp, N), dtype=torch.float32,
+                          device=x.device) if with_states else None)
     with torch.cuda.device(x.device):
         err = _entry()(
             DTYPES[x.dtype], hp, N, x.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), dt.data_ptr(), Af.data_ptr(), Df.data_ptr(),
             None if state is None else state.data_ptr(), y.data_ptr(),
-            s_out.data_ptr(), B, T, nh, *bhtd_strides(x), *Bm.stride(),
+            s_out.data_ptr(), None if states is None else states.data_ptr(),
+            B, T, nh, *bhtd_strides(x), *Bm.stride(),
             *Cm.stride(), *dt.stride(), *bhtd_strides(y),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
-    return y, s_out
+    return (y, s_out, states) if with_states else (y, s_out)

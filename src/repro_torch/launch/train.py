@@ -7,10 +7,9 @@
 The reference's flags, plus `--device` and `--seed` (the random weights'
 generator). It runs on CUDA unless `--device cpu` is given, and raises
 when CUDA is absent. On CUDA the attention layers run the flash-attention
-kernel and its backward kernel; configs whose layers need a kernel with
-no backward yet (rwkv6, mamba2, the zamba2 hybrid: ROADMAP item 8b) and
-W8A8 experts raise. `--smoke` trains the reduced config, sized for the
-CPU.
+kernel and its backward kernel, and the recurrent mixers (rwkv6, mamba2,
+the zamba2 hybrid) the scan kernels and their backward kernels; W8A8
+experts raise. `--smoke` trains the reduced config, sized for the CPU.
 """
 from __future__ import annotations
 
@@ -45,7 +44,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    check_trainable(cfg, dev)
+    check_trainable(cfg)
     stream = PackedStream(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
         n_codebooks=cfg.n_codebooks))

@@ -321,23 +321,17 @@ def _train_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
-def check_trainable(cfg: ModelConfig, device: torch.device,
-                    use_kernels: bool = True) -> None:
+def check_trainable(cfg: ModelConfig) -> None:
     """Raise for what `train_loss` cannot differentiate: int8 expert
-    weights anywhere (the reference's `jax.grad` refuses integer leaves
-    too), and on CUDA with the kernels, the recurrent mixers, whose scan
-    kernels have no backward yet (ROADMAP item 8b): they would otherwise
-    have to train through the plain scans."""
+    weights, on every device and path (the reference's `jax.grad` refuses
+    integer leaves too). Every other config trains on the CPU and on CUDA;
+    on CUDA with the kernels the attention layers run the flash backward
+    kernel and the recurrent mixers (rwkv6, mamba2, the zamba2 hybrid)
+    the scans' backward kernels."""
     if cfg.moe_w8a8:
         raise NotImplementedError(
             f"{cfg.name} with moe_w8a8: int8 expert weights are not "
             f"trainable")
-    if torch.device(device).type == "cuda" and use_kernels and (
-            cfg.token_mixer in ("mamba2", "rwkv6") or cfg.attn_every):
-        raise NotImplementedError(
-            f"{cfg.name}: training on CUDA needs the backward of the "
-            f"{cfg.token_mixer} scan kernel, which ROADMAP item 8b brings; "
-            f"train on the CPU, or pass use_kernels=False")
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -400,7 +394,7 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     whose rows are dropped before the loss; codebook configs average one
     CE per codebook."""
     tokens = batch["tokens"]
-    check_trainable(cfg, tokens.device, use_kernels)
+    check_trainable(cfg)
     prefix = batch.get("prefix")
     x = _embed(params, cfg, tokens, prefix)
     h = _train_layers(params, cfg, x, use_kernels)

@@ -729,24 +729,27 @@ def test_flash_attention_autograd_runs_both_kernels(dev, hd):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_a_gradient(dev):
-    """decode_attention, ssm_scan, rwkv6_wkv and the int8 GEMM raise on
-    CUDA when a gradient is asked of their inputs, rather than dropping
-    it; with grad mode off they run. Attention's backward takes every
-    head dim its forward takes: a gradient at hd 112 runs."""
+    """decode_attention and the int8 GEMM raise on CUDA when a gradient is
+    asked of their inputs, rather than dropping it (decode with its own
+    reason: no training path decodes); with grad mode off they run. The
+    scans and attention have backward kernels: a gradient through
+    ssm_scan, rwkv6_wkv and attention at hd 112 runs and is finite."""
     rng = np.random.default_rng(3)
     qd = torch.zeros(1, 2, 4, 64, device=dev, requires_grad=True)
     kc = torch.zeros(1, 2, 16, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="decoding is not trained"):
         decode_attention(qd, kc, kc)
     with torch.no_grad():
         decode_attention(qd, kc, kc)
     x, Bm, Cm, dt, A, D, _ = _ssm_case(rng, 1, 16, 2, 32, 16,
                                        torch.float32, dev)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ssm_scan(x.requires_grad_(), Bm, Cm, dt, A, D)
+    grad, = torch.autograd.grad(
+        ssm_scan(x.requires_grad_(), Bm, Cm, dt, A, D)[0].sum(), x)
+    assert grad.shape == x.shape and torch.isfinite(grad).all()
     r, k, v, lw, u, _ = _wkv_case(rng, 1, 16, 2, 64, torch.float32, dev)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        rwkv6_wkv(r, k, v, lw, u.requires_grad_())
+    grad, = torch.autograd.grad(
+        rwkv6_wkv(r, k, v, lw, u.requires_grad_())[0].sum(), u)
+    assert grad.shape == u.shape and torch.isfinite(grad).all()
     from repro_torch.kernels.int8_grouped_matmul.ops import \
         int8_grouped_matmul
     a = torch.ones(2, 16, 32, dtype=torch.int8, device=dev)
@@ -756,6 +759,212 @@ def test_kernels_without_a_backward_refuse_a_gradient(dev):
     grad, = torch.autograd.grad(flash_attention(x112, x112, x112).sum(),
                                 x112)
     assert grad.shape == x112.shape and torch.isfinite(grad).all()
+
+
+# -- the scans' backward kernels ------------------------------------------
+# The plain backwards (the stepwise formulas) run in f32 on the same,
+# exactly upcast inputs; each gradient is held relative to its largest
+# entry: 2e-5 in f32 (and for the f32 gradients of a bf16 call: dt, A, D,
+# u, the state); the bf16 gradients are the f32 ones rounded once, so
+# 4e-3 (twice bf16's 2**-9).
+
+BWD_BF16_TOL = 4e-3
+
+
+def _assert_grads(got, want, dtype, names):
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        tol = F32_TOL if g.dtype == torch.float32 else BWD_BF16_TOL
+        assert g.dtype == (torch.float32 if g.dtype == torch.float32
+                           else dtype), name
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= tol, f"{name}: {rel:.3e} of max|want| (tol {tol:g})"
+
+
+def _ssm_bwd_case(rng, B, T, nh, hp, N, dtype, dev, strong=False):
+    x, Bm, Cm, dt, A, D, s0 = _ssm_case(rng, B, T, nh, hp, N, dtype, dev)
+    if strong:     # a chunk's cumulative dt A far below -88
+        dt = torch.from_numpy(rng.uniform(0.5, 4.0, (B, T, nh)).astype(
+            np.float32)).to(dev)
+        A = -torch.from_numpy(rng.uniform(5.0, 30.0, (nh,)).astype(
+            np.float32)).to(dev)
+    dy = _randn(rng, (B, T, nh, hp), dev, dtype)
+    ds = _randn(rng, (B, nh, hp, N), dev)
+    return x, Bm, Cm, dt, A, D, s0, dy, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nh,hp,N", [
+    (2, 77, 3, 32, 16), (2, 256, 4, 64, 64), (1, 999, 3, 64, 64),
+    (2, 40, 2, 64, 32), (1, 1, 2, 32, 16), (2, 65, 5, 64, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssm_bwd_kernel_matches_plain(dev, B, T, nh, hp, N, dtype,
+                                      with_state):
+    """The backward kernel on the forward kernel's chunk states, against
+    the plain backward; from a nonzero state with a final-state gradient,
+    or from zeros with none."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan_bwd.ops import ssm_scan_bwd
+    from repro_torch.kernels.ssm_scan_bwd.ref import ssm_scan_bwd_ref
+
+    rng = np.random.default_rng(B * 1000 + T + nh)
+    x, Bm, Cm, dt, A, D, s0, dy, ds = _ssm_bwd_case(rng, B, T, nh, hp, N,
+                                                    dtype, dev)
+    s0, ds = (s0, ds) if with_state else (None, None)
+    _, _, states = sk.ssm_scan(x, Bm, Cm, dt, A, D, s0, with_states=True)
+    n0 = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(x, Bm, Cm, dt, A, D, states, dy, ds)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == n0 + 1
+    want = ssm_scan_bwd_ref(*_f32(x, Bm, Cm), dt, A, D, s0, dy.float(), ds)
+    _assert_grads(got, want, dtype, ("dx", "dBm", "dCm", "ddt", "dA", "dD",
+                                     "dstate"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", [
+    (2, 77, 3, 32), (2, 128, 2, 64), (1, 999, 2, 64), (1, 1, 2, 64),
+    (2, 33, 4, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay_shift", [-6.0, -1.5, 1.5])
+def test_wkv_bwd_kernel_matches_plain(dev, B, T, H, hd, dtype, decay_shift):
+    """A weak decay (the models' w0 = -6), the sweep's and a strong one,
+    from a nonzero state with a final-state gradient."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv_bwd.ops import rwkv6_wkv_bwd
+    from repro_torch.kernels.rwkv6_wkv_bwd.ref import rwkv6_wkv_bwd_ref
+
+    rng = np.random.default_rng(B * 1000 + T + H)
+    r, k, v, lw, u, s0 = _wkv_case(rng, B, T, H, hd, dtype, dev,
+                                   decay_shift)
+    dy = _randn(rng, (B, T, H, hd), dev, dtype)
+    ds = _randn(rng, (B, H, hd, hd), dev)
+    _, _, states = wk.rwkv6_wkv(r, k, v, lw, u, s0, with_states=True)
+    n0 = rwkv6_wkv_bwd.launches
+    got = rwkv6_wkv_bwd(r, k, v, lw, u, states, dy, ds)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv_bwd.launches == n0 + 1
+    want = rwkv6_wkv_bwd_ref(*_f32(r, k, v, lw), u, s0, dy.float(), ds)
+    _assert_grads(got, want, dtype, ("dr", "dk", "dv", "dlw", "du",
+                                     "dstate"))
+
+
+@pytest.mark.cuda
+def test_ssm_bwd_kernel_survives_a_strong_decay(dev):
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan_bwd import kernel as sbk
+    from repro_torch.kernels.ssm_scan_bwd.ref import ssm_scan_bwd_ref
+
+    rng = np.random.default_rng(11)
+    x, Bm, Cm, dt, A, D, s0, dy, ds = _ssm_bwd_case(
+        rng, 2, 200, 3, 64, 64, torch.float32, dev, strong=True)
+    _, _, states = sk.ssm_scan(x, Bm, Cm, dt, A, D, s0, with_states=True)
+    got = sbk.ssm_scan_bwd(x, Bm, Cm, dt, A, D, states, dy, ds)
+    want = ssm_scan_bwd_ref(x, Bm, Cm, dt, A, D, s0, dy, ds)
+    _assert_grads(got, want, torch.float32, ("dx", "dBm", "dCm", "ddt",
+                                             "dA", "dD", "dstate"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_kernels_are_deterministic(dev, dtype):
+    """No float atomics: two launches give the same bits."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv_bwd import kernel as wbk
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan_bwd import kernel as sbk
+
+    rng = np.random.default_rng(5)
+    x, Bm, Cm, dt, A, D, s0, dy, ds = _ssm_bwd_case(rng, 2, 333, 8, 64, 64,
+                                                    dtype, dev)
+    _, _, st = sk.ssm_scan(x, Bm, Cm, dt, A, D, s0, with_states=True)
+    a = sbk.ssm_scan_bwd(x, Bm, Cm, dt, A, D, st, dy, ds)
+    b = sbk.ssm_scan_bwd(x, Bm, Cm, dt, A, D, st, dy, ds)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    r, k, v, lw, u, s0 = _wkv_case(rng, 2, 333, 4, 64, dtype, dev)
+    dy = _randn(rng, (2, 333, 4, 64), dev, dtype)
+    _, _, st = wk.rwkv6_wkv(r, k, v, lw, u, s0, with_states=True)
+    a = wbk.rwkv6_wkv_bwd(r, k, v, lw, u, st, dy)
+    b = wbk.rwkv6_wkv_bwd(r, k, v, lw, u, st, dy)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ssm_scan", "rwkv6_wkv"])
+def test_scan_forward_chunk_states_leave_serving_unchanged(dev, kind):
+    """The forward with its chunk-state output gives the same y and final
+    state bit for bit, and each chunk's state is the plain version's state
+    after the chunks before it."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    rng = np.random.default_rng(7)
+    if kind == "ssm_scan":
+        *ins, s0 = _ssm_case(rng, 2, 130, 3, 64, 64, torch.float32, dev)
+        fwd, ref = sk.ssm_scan, ssm_scan_ref
+    else:
+        *ins, s0 = _wkv_case(rng, 2, 130, 3, 64, torch.float32, dev)
+        fwd, ref = wk.rwkv6_wkv, rwkv6_wkv_ref
+    y, s = fwd(*ins, s0)
+    y2, s2, states = fwd(*ins, s0, with_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    assert states.shape[2] == 5
+    for c in range(5):
+        want = s0 if c == 0 else ref(*[a[:, :32 * c] if a.dim() >= 3 else a
+                                       for a in ins], s0)[1]
+        torch.testing.assert_close(states[:, :, c], want, atol=F32_TOL,
+                                   rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ssm_scan", "rwkv6_wkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_autograd_runs_both_kernels(dev, kind, dtype):
+    """Under autograd the op's forward writes its chunk states and its
+    backward launches the backward kernel once, with a gradient on y and
+    on the final state; the gradients are the plain path's (autograd on
+    the CPU), returned in each input's dtype; inference takes the forward
+    alone, bit for bit the same y."""
+    from repro_torch.kernels.rwkv6_wkv_bwd.ops import rwkv6_wkv_bwd
+    from repro_torch.kernels.ssm_scan_bwd.ops import ssm_scan_bwd
+
+    rng = np.random.default_rng(13)
+    if kind == "ssm_scan":
+        ins = list(_ssm_case(rng, 2, 77, 3, 64, 64, dtype, dev))
+        op, bwd = ssm_scan, ssm_scan_bwd
+    else:
+        ins = list(_wkv_case(rng, 2, 77, 3, 64, dtype, dev))
+        op, bwd = rwkv6_wkv, rwkv6_wkv_bwd
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    n_fwd, n_bwd = op.launches, bwd.launches
+    y, s = op(*leaves)
+    loss = (y.float() ** 2).sum() + s.sum()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert (op.launches, bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    with torch.no_grad():
+        y_inf, _ = op(*ins)
+    assert torch.equal(y_inf, y.detach())
+    cpu = [t.detach().cpu().float().requires_grad_() for t in ins]
+    yc, sc = op(*cpu)
+    want = torch.autograd.grad((yc ** 2).sum() + sc.sum(), cpu)
+    names = [f"d{i}" for i in range(len(ins))]
+    for g, t in zip(grads, ins):
+        assert g.dtype == t.dtype
+    # A bf16 y enters the loss rounded; the CPU reference keeps it in f32,
+    # so a bf16 call is held at the bf16 bound throughout.
+    if dtype == torch.bfloat16:
+        for name, g, w in zip(names, grads, want):
+            rel = ((g.float().cpu() - w).abs().max()
+                   / w.abs().max()).item()
+            assert rel <= 2e-2, f"{name}: {rel:.3e}"
+    else:
+        _assert_grads([g.cpu() for g in grads], want, dtype, names)
 
 
 # -- the MoE and io configs' attention widths ------------------------------

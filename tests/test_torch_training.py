@@ -11,6 +11,7 @@ checkpoints bit for bit; the 5-step loss and grad-norm history rtol 1e-4
 order). The reference runs with 64-bit types off (`jax.enable_x64(False)`):
 another test file in the same process may have turned them on.
 """
+import dataclasses
 import json
 import pkgutil
 import subprocess
@@ -358,14 +359,14 @@ def test_w8a8_config_does_not_train():
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
 def test_recurrent_configs_refuse_cuda_kernels(arch):
-    """On CUDA a recurrent config would need its scan's backward kernel
-    (item 8b): it raises before anything runs, unless the plain scans are
-    asked for."""
+    """The recurrent configs train on every device and path now that both
+    scans have a backward kernel (the check no longer asks which device or
+    path); the same config with W8A8 experts still raises. The name is
+    the one this test had when the check refused them on CUDA."""
     cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        decoder.check_trainable(cfg, torch.device("cuda"))
-    decoder.check_trainable(cfg, torch.device("cuda"), use_kernels=False)
-    decoder.check_trainable(cfg, torch.device("cpu"))
+    decoder.check_trainable(cfg)
+    with pytest.raises(NotImplementedError, match="int8"):
+        decoder.check_trainable(dataclasses.replace(cfg, moe_w8a8=True))
 
 
 def test_launcher_trains_on_the_cpu(capsys):
