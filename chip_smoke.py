@@ -127,8 +127,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (the loss finite and falling; exact launch counts per step of every
      kernel of the path), step ms, tokens/s, peak memory and one profiled
      step; and each backward's time at the training shape beside its
-     bound, its plain version and the forward with and without its chunk
-     states.
+     bound, its plain version, the forward with and without its chunk
+     states and the time of its first, scalar kernel (copied from
+     PERF.md, printed only), with a SASS line: the count of HMMA
+     (tensor-core mma.sync) instructions in the backward's chunk kernel,
+     which must be above 0.
 
 Phases 8-12 print their numbers as JSON lines {"risk": ...},
 {"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...},
@@ -2870,6 +2873,33 @@ def train_recurrent_on_card(arch, dev, seed):
     return result
 
 
+# Each backward's phase-12.4 time before its Hopper redesign (the first,
+# scalar kernels, PERF.md's kernel table, NVIDIA H100 80GB HBM3 at 700 W):
+# printed beside this run's for reading only, never in the JSON line.
+BWD_BEFORE_REDESIGN_MS = {"ssm_scan": 22.4415, "rwkv6_wkv": 17.6985}
+# The backwards' chunk kernels at the models' widths, f32 (mangled names).
+BWD_CHUNK_KERNELS = {"ssm_scan": "ssd_bwd_kernelIfLi64ELi64E",
+                     "rwkv6_wkv": "wkv_bwd_kernelIfLi64E"}
+
+
+def bwd_sass(name) -> dict:
+    """The opcode counts of `name`'s backward chunk kernel (cuobjdump);
+    fails unless it holds tensor-core products (HMMA)."""
+    from repro_torch.kernels import _build
+    mixes = [m for fn, m in _build.opcode_mix(f"{name}_bwd").items()
+             if BWD_CHUNK_KERNELS[name] in fn]
+    if len(mixes) != 1:
+        fail(f"{name}_bwd: {len(mixes)} SASS functions match "
+             f"{BWD_CHUNK_KERNELS[name]}")
+    mix = mixes[0]
+    print(f"  sass {name}_bwd {BWD_CHUNK_KERNELS[name]}: HMMA {mix['HMMA']} "
+          f"of {sum(mix.values())} instructions; "
+          + ", ".join(f"{k} {v}" for k, v in mix.most_common(8)), flush=True)
+    if not mix["HMMA"]:
+        fail(f"{name}_bwd: no HMMA in its chunk kernel's SASS")
+    return dict(hmma=mix["HMMA"], instructions=sum(mix.values()))
+
+
 def time_scan_bwd(timed):
     """Phase 12.4: each backward kernel at the training shape beside its
     bound, its plain version and the forward with and without its chunk
@@ -2916,7 +2946,10 @@ def time_scan_bwd(timed):
                    states_read_ms=states_read_ms,
                    shape="x".join(str(n) for n in x.shape) + " f32, from "
                          "zeros")
-        print(f"  {name}_bwd [{row['shape']}]: {ms:.4f} ms (eager "
+        row["sass"] = bwd_sass(name)
+        print(f"  {name}_bwd [{row['shape']}]: {ms:.4f} ms (the first, "
+              f"scalar kernel, from PERF.md: "
+              f"{BWD_BEFORE_REDESIGN_MS[name]:.4f} ms) (eager "
               f"{eager:.4f}), bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% "
               f"of it; bytes alone {bytes_ms:.4f} ms; at the f32 rate "
               f"{row['bound_f32_ms']:.4f} ms), plain "

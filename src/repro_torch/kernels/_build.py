@@ -10,9 +10,11 @@ Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -84,3 +86,21 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def opcode_mix(name: str) -> dict[str, collections.Counter]:
+    """The SASS opcode counts of every kernel function in `name`'s library
+    (built first if needed), by `cuobjdump -sass`, keyed by the function's
+    mangled name. HMMA counts the warp-level tensor-core products (mma.sync
+    f16/bf16/TF32), HGMMA the warpgroup ones (wgmma)."""
+    build_all((name,))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    mix = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]+)", body)
+        mix[body.split("\n", 1)[0].strip()] = collections.Counter(
+            op.split(".")[0] for op in ops)
+    return mix

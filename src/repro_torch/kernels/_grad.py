@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ._layout import aligned16
+
 
 def refuse_grad(kernel: str, why: str, *tensors: torch.Tensor | None) -> None:
     """Raise NotImplementedError when grad mode is on and an input requires
@@ -24,11 +26,13 @@ def wants_grad(*tensors: torch.Tensor | None) -> bool:
 
 
 def unit_last(g: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
-    """An output's gradient as a backward kernel reads it: zeros shaped as
-    `like` when autograd passes none, a copy only where the last stride is
-    not 1 (a gradient broadcast from a sum has stride 0)."""
+    """An output's gradient as a backward kernel reads it (by 16-byte
+    copies): zeros shaped as `like` when autograd passes none, a copy only
+    where the layout is not one the kernels take (a gradient broadcast
+    from a sum has stride 0; a view may be misaligned)."""
     if g is None:
         return torch.zeros_like(like)
-    if g.stride(-1) != 1 or min(g.stride()) < 0:
-        return g.contiguous()
+    if min(g.stride()) < 0 or not aligned16(g.shape, g.stride(),
+                                            g.element_size(), g.data_ptr()):
+        return g.clone(memory_format=torch.contiguous_format)
     return g

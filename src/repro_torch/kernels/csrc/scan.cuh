@@ -135,3 +135,60 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+
+// Fragment loads of the scan backwards (ssm_scan_bwd.cu, rwkv6_wkv_bwd.cu)
+// from f32 shared memory, split for 3xTF32. `p` points at the tile's
+// (row 0, k 0) element; `ld` is the row stride in floats. "perm" loads
+// take k-index q from column 2q and q + 4 from 2q + 1 of each 8, by one
+// 8-byte load; the two operands of a product must agree on it. With a row
+// stride of 8 mod 32 words, the 8-byte loads and the scalar k-major loads
+// are free of bank conflicts; a k-major perm load has two-way conflicts.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// A (16 x 8): element (m, k) at p[m * ld + k], permuted.
+__device__ __forceinline__ void frag_a_perm(Frag<4>& a, const float* p,
+                                            int ld, int g, int q) {
+  const float2 r0 = ld2(p + g * ld + 2 * q);
+  const float2 r1 = ld2(p + (g + 8) * ld + 2 * q);
+  a.set(0, r0.x), a.set(1, r1.x), a.set(2, r0.y), a.set(3, r1.y);
+}
+
+// A (16 x 8): element (m, k) at p[k * ld + m].
+__device__ __forceinline__ void frag_a_kmaj(Frag<4>& a, const float* p,
+                                            int ld, int g, int q) {
+  a.set(0, p[q * ld + g]), a.set(1, p[q * ld + g + 8]);
+  a.set(2, p[(q + 4) * ld + g]), a.set(3, p[(q + 4) * ld + g + 8]);
+}
+
+// B (8 x 8): element (k, n) at p[n * ld + k], permuted.
+__device__ __forceinline__ void frag_b_perm(Frag<2>& b, const float* p,
+                                            int ld, int g, int q) {
+  const float2 v = ld2(p + g * ld + 2 * q);
+  b.set(0, v.x), b.set(1, v.y);
+}
+
+// B (8 x 8): element (k, n) at p[k * ld + n].
+__device__ __forceinline__ void frag_b_kmaj(Frag<2>& b, const float* p,
+                                            int ld, int g, int q) {
+  b.set(0, p[q * ld + g]), b.set(1, p[(q + 4) * ld + g]);
+}
+
+// B (8 x 8): element (k, n) at p[k * ld + n], permuted.
+__device__ __forceinline__ void frag_b_kmaj_perm(Frag<2>& b, const float* p,
+                                                 int ld, int g, int q) {
+  b.set(0, p[2 * q * ld + g]), b.set(1, p[(2 * q + 1) * ld + g]);
+}
+
+// Sum over the four lanes of a quad (the lanes sharing g).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

@@ -2,7 +2,7 @@
 plain version for CPU tensors.
 
 `rwkv6_wkv_bwd.launches` counts the kernel's launches (one per call: the
-state sweep, the chunk kernel and the fixed-order sum together), so a
+sweep over the chunks and the fixed-order sum together), so a
 training run can show that its WKV gradients went through the kernel.
 """
 from __future__ import annotations

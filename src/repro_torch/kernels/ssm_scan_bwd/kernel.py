@@ -3,14 +3,17 @@
 The kernel is CUDA C++ in `kernels/csrc/ssm_scan_bwd.cu`, which carries
 the design note: the backward of `kernels/csrc/ssm_scan.cu`, for training
 (the reference differentiates its XLA scan instead; the TPU kernel has no
-backward). One call launches three kernels: the reverse sweep of the
-state gradient over the 32-step chunks, one block per chunk of a batch
-row that loops over the heads (so dBm and dCm, shared by the heads, are
-summed without atomics), and the fixed-order sum of dA and dD. It reads
-the forward's chunk states (`ssm_scan.kernel.ssm_scan(...,
-with_states=True)`). This module checks the operands, allocates the
-gradients and the workspace, and launches on the current stream through
-its C entry point. Operands are read through their strides.
+backward). One call launches two kernels: one block per two heads of a
+batch row sweeps the 32-step chunks from last to first with the state
+gradient in registers and every product in 3xTF32 on the tensor cores,
+writing dBm and dCm (shared by the heads) as per-block partials; the
+second sums those partials, and dA and dD, in a fixed order. It reads the
+forward's chunk states (`ssm_scan.kernel.ssm_scan(..., with_states=True)`).
+This module checks the operands, allocates the gradients and the
+workspace, and launches on the current stream through its C entry point.
+Operands are read through their strides; x, Bm, Cm and dy by 16-byte
+copies, so a base or stride that is not a multiple of 16 bytes raises
+ValueError (there is no fallback).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import functools
 import torch
 
 from .. import _build
+from .._layout import check_aligned
 from ..ssm_scan.kernel import CHUNK, DTYPES, HEAD_DIMS, STATE_DIMS, \
     bhtd_strides
 
@@ -74,6 +78,7 @@ def _check(x, Bm, Cm, dt, A, D, states, dy, dstate):
                              f"got strides {t.stride()}")
     if min(dt.stride()) < 0:
         raise ValueError(f"dt has negative strides {dt.stride()}")
+    check_aligned("ssm_scan_bwd", x=x, Bm=Bm, Cm=Cm, dy=dy)
     want = (B, nh, -(-T // CHUNK), hp, N)
     if (states.dtype != torch.float32 or tuple(states.shape) != want
             or not states.is_contiguous()):
@@ -91,16 +96,16 @@ def ssm_scan_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                  dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
                  states: torch.Tensor, dy: torch.Tensor,
                  dstate: torch.Tensor | None = None):
-    """x, dy [B,T,nh,hp], Bm, Cm [B,T,N] of one dtype; dt [B,T,nh] f32; A,
-    D [nh]; states [B,nh,ceil(T/32),hp,N] f32 from the forward; dstate
-    [B,nh,hp,N] f32 or None (zeros); all on one CUDA device, any strides
-    with a unit last one. Returns (dx [B,T,nh,hp] and dBm, dCm [B,T,N] in
-    x's dtype; ddt [B,T,nh] f32; dA, dD [nh] f32; dstate_in [B,nh,hp,N]
-    f32), all contiguous."""
+    """x, dy [B,T,nh,hp], Bm, Cm [B,T,N] of one dtype, any 16-byte-aligned
+    strides with a unit last one and 16-byte-aligned bases; dt [B,T,nh]
+    f32; A, D [nh]; states [B,nh,ceil(T/32),hp,N] f32 from the forward;
+    dstate [B,nh,hp,N] f32 or None (zeros); all on one CUDA device.
+    Returns (dx [B,T,nh,hp] and dBm, dCm [B,T,N] in x's dtype; ddt
+    [B,T,nh] f32; dA, dD [nh] f32; dstate_in [B,nh,hp,N] f32), all
+    contiguous."""
     _check(x, Bm, Cm, dt, A, D, states, dy, dstate)
     B, T, nh, hp = x.shape
     N = Bm.shape[2]
-    nc = -(-T // CHUNK)
     dev = x.device
     Af = A.to(torch.float32).contiguous()
     Df = D.to(torch.float32).contiguous()
@@ -110,8 +115,9 @@ def ssm_scan_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     ddt = torch.empty((B, T, nh), dtype=torch.float32, device=dev)
     dAD = torch.empty((2, nh), dtype=torch.float32, device=dev)
     ds_in = torch.empty((B, nh, hp, N), dtype=torch.float32, device=dev)
-    ge = torch.empty_like(states)
-    part = torch.empty((B, nc, nh, 2), dtype=torch.float32, device=dev)
+    part_bc = torch.empty((2, B, -(-nh // 2), T, N), dtype=torch.float32,
+                          device=dev)
+    part_ad = torch.empty((B, nh, 2), dtype=torch.float32, device=dev)
     strides = torch.tensor([*bhtd_strides(x), *Bm.stride(), *Cm.stride(),
                             *dt.stride(), *bhtd_strides(dy),
                             *bhtd_strides(dx)], dtype=torch.int64)
@@ -122,8 +128,8 @@ def ssm_scan_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
             states.data_ptr(), dy.data_ptr(),
             None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), dAD[0].data_ptr(),
-            dAD[1].data_ptr(), ds_in.data_ptr(), ge.data_ptr(),
-            part.data_ptr(), B, T, nh, strides.data_ptr(),
+            dAD[1].data_ptr(), ds_in.data_ptr(), part_bc.data_ptr(),
+            part_ad.data_ptr(), B, T, nh, strides.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssm_scan_bwd kernel launch failed: CUDA error "

@@ -2,8 +2,8 @@
 the plain version for CPU tensors.
 
 `ssm_scan_bwd.launches` counts the kernel's launches (one per call: the
-state sweep, the chunk kernel and the fixed-order sums together), so a
-training run can show that its scan gradients went through the kernel.
+sweep over the chunks and the fixed-order sums together), so a training
+run can show that its scan gradients went through the kernel.
 """
 from __future__ import annotations
 

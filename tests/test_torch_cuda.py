@@ -894,6 +894,91 @@ def test_scan_bwd_kernels_are_deterministic(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 31, 32, 33])
+@pytest.mark.parametrize("nh,hp,N", [
+    (3, 64, 64), (5, 64, 32), (1, 32, 16), (3, 32, 32), (2, 32, 64),
+    (3, 64, 16),
+])
+def test_ssm_bwd_kernel_tile_edges(dev, T, nh, hp, N):
+    """The backward's tiling at its edges: one step, a chunk short of,
+    exactly and one past 32 steps; an odd head count (a block's second
+    head missing); every (hp, N) the dispatch takes."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan_bwd import kernel as sbk
+    from repro_torch.kernels.ssm_scan_bwd.ref import ssm_scan_bwd_ref
+
+    rng = np.random.default_rng(T * 100 + nh * 10 + hp + N)
+    x, Bm, Cm, dt, A, D, s0, dy, ds = _ssm_bwd_case(rng, 2, T, nh, hp, N,
+                                                    torch.float32, dev)
+    _, _, states = sk.ssm_scan(x, Bm, Cm, dt, A, D, s0, with_states=True)
+    got = sbk.ssm_scan_bwd(x, Bm, Cm, dt, A, D, states, dy, ds)
+    want = ssm_scan_bwd_ref(x, Bm, Cm, dt, A, D, s0, dy, ds)
+    _assert_grads(got, want, torch.float32, ("dx", "dBm", "dCm", "ddt",
+                                             "dA", "dD", "dstate"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 31, 32, 33])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("decay_shift", [-6.0, 1.5])
+def test_wkv_bwd_kernel_tile_edges(dev, T, hd, decay_shift):
+    """The backward's tiling at its edges (one step, 31, 32 and 33 steps:
+    the sub-chunks and the chunk cut short, full, one past), both head
+    dims, a weak decay and a strong one."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv_bwd import kernel as wbk
+    from repro_torch.kernels.rwkv6_wkv_bwd.ref import rwkv6_wkv_bwd_ref
+
+    rng = np.random.default_rng(T * 100 + hd)
+    r, k, v, lw, u, s0 = _wkv_case(rng, 2, T, 3, hd, torch.float32, dev,
+                                   decay_shift)
+    dy = _randn(rng, (2, T, 3, hd), dev)
+    ds = _randn(rng, (2, 3, hd, hd), dev)
+    _, _, states = wk.rwkv6_wkv(r, k, v, lw, u, s0, with_states=True)
+    got = wbk.rwkv6_wkv_bwd(r, k, v, lw, u, states, dy, ds)
+    want = rwkv6_wkv_bwd_ref(r, k, v, lw, u, s0, dy, ds)
+    _assert_grads(got, want, torch.float32, ("dr", "dk", "dv", "dlw", "du",
+                                             "dstate"))
+
+
+@pytest.mark.cuda
+def test_scan_bwd_kernels_refuse_misaligned_operands(dev):
+    """The backwards read x, Bm, Cm, dy (r, k, v, lw, dy) by 16-byte
+    copies: a misaligned view raises ValueError, and nothing is counted;
+    under autograd a misaligned output gradient is copied, not refused."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv_bwd.ops import rwkv6_wkv_bwd
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan_bwd.ops import ssm_scan_bwd
+
+    rng = np.random.default_rng(17)
+    x, Bm, Cm, dt, A, D, s0, dy, ds = _ssm_bwd_case(rng, 1, 40, 2, 64, 64,
+                                                    torch.float32, dev)
+    _, _, states = sk.ssm_scan(x, Bm, Cm, dt, A, D, s0, with_states=True)
+    bad = torch.zeros(x.numel() + 1, device=dev)[1:].view(x.shape)
+    bad.copy_(dy)
+    n0 = ssm_scan_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ssm_scan_bwd(x, Bm, Cm, dt, A, D, states, bad, ds)
+    assert ssm_scan_bwd.launches == n0
+    r, k, v, lw, u, s0 = _wkv_case(rng, 1, 40, 2, 64, torch.float32, dev)
+    _, _, states = wk.rwkv6_wkv(r, k, v, lw, u, s0, with_states=True)
+    bad = torch.zeros(r.numel() + 1, device=dev)[1:].view(r.shape)
+    bad.copy_(r)
+    n0 = rwkv6_wkv_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_wkv_bwd(r, k, v, lw, u, states, bad)
+    assert rwkv6_wkv_bwd.launches == n0
+    leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, lw, u)]
+    y, _ = rwkv6_wkv(*leaves)
+    g = torch.zeros(y.numel() + 1, device=dev)[1:].view(y.shape)
+    g.copy_(torch.ones_like(y))
+    got = torch.autograd.grad(y, leaves, g, retain_graph=True)
+    want = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["ssm_scan", "rwkv6_wkv"])
 def test_scan_forward_chunk_states_leave_serving_unchanged(dev, kind):
     """The forward with its chunk-state output gives the same y and final

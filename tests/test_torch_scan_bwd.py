@@ -4,8 +4,11 @@ through the forwards' plain versions, against `jax.vjp` of the JAX
 package's kernel oracles, and, for the state and parameter gradients,
 against `jax.vjp` of the JAX models' layers (their chunked `chunk_step`
 scans); then torch twins of the CUDA kernels' chunked algebra (chunk
-states from the forward, the reverse sweep of the state gradient, the
-per-chunk gradients, dla summed term by term) against autograd.
+states from the forward, one sweep from the last chunk to the first that
+carries the state gradient, dla summed term by term, WKV's sub-chunk
+midpoint factoring) against autograd, and with the tensor cores' TF32
+rounding emulated, where 3xTF32 holds the f32 bound and one TF32 product
+does not.
 
 Inputs come from numpy seeds. Tolerances are relative to the largest
 entry of each gradient: 1e-5 for the plain versions (f32 sums of a few
@@ -280,13 +283,20 @@ def test_scan_bwd_state_grads_match_reference_model(kind):
 
 # ------------------------------ the kernels' chunked algebra, on the CPU
 #
-# Torch twins of ssm_scan_bwd.cu and rwkv6_wkv_bwd.cu: the forward's chunk
-# states, the reverse sweep of the state gradient (its value at every
-# chunk's end), then every gradient of a chunk from its two boundaries,
-# in f32 with the kernels' sums (exponents summed within the chunk, dla
-# term by term, dlw a reverse sum of dC).
+# Torch twins of ssm_scan_bwd.cu and rwkv6_wkv_bwd.cu. The forward kernel's
+# chunk states, then one sweep over the chunks from last to first that
+# carries the state gradient G: each chunk's gradients come from the state
+# it starts from (read from the chunk states) and G at its end, then G
+# steps back over the chunk. In f32 with the kernels' sums: SSD exponents
+# summed within the chunk, dla term by term, dD from the diagonal of
+# dy x^T; WKV decays in base-2 logarithms, the 16-step sub-chunks'
+# midpoint factoring with the two diagonal blocks apart, dlw a reverse sum
+# of dC. Every product goes through `mm`, so a test can run it on emulated
+# TF32 tensor cores.
 
 Q = 32
+SUB = 16
+_LOG2E = 1.4426950408889634
 
 
 def _excl(a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -306,124 +316,155 @@ def _pad(a: torch.Tensor, n: int) -> torch.Tensor:
                                      + a.shape[2:])], 1)
 
 
-def _ssd_bwd_twin(x, Bm, Cm, dt, A, D, S0, dy, dS):
+def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """x cut to TF32 (10 mantissa bits) by `split_tf32`'s bit operations
+    on an int32 view: rounded to nearest, ties away from zero, or
+    truncated."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + (0x1000 if rounded else 0)) & -0x2000).view(
+        torch.float32)
+
+
+def _mm_tf32(passes: int):
+    """a @ b as the kernels' mma.sync runs it: passes 3 is 3xTF32 (hi*hi +
+    hi*lo + lo*hi; hi rounded, lo = x - hi truncated), passes 1 one TF32
+    product of the rounded operands."""
+    def mm(a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        if passes == 1:
+            return ah @ bh
+        al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+        return al @ bh + ah @ bl + ah @ bh
+    return mm
+
+
+def _exact(a, b):
+    return a @ b
+
+
+def _ssd_bwd_twin(x, Bm, Cm, dt, A, D, S0, dy, dS, mm=_exact):
     B, T, nh = x.shape[:3]
     nc = -(-T // Q)
     x, Bm, Cm, dt, dy = (_pad(a, nc * Q) for a in (x, Bm, Cm, dt, dy))
-    la = (dt * A).reshape(B, nc, Q, nh)
-    P_all = torch.cumsum(la, 2)
-    states, S = [], S0.clone()
+    la = (dt * A).reshape(B, nc, Q, nh).permute(0, 1, 3, 2)  # [B,c,nh,Q]
+    P_all = torch.cumsum(la, -1)
+    xs, dys = (a.reshape(B, nc, Q, nh, -1).permute(0, 1, 3, 2, 4)
+               for a in (x, dy))                          # [B,c,nh,Q,hp]
+    Bs, Cs = (a.reshape(B, nc, 1, Q, -1) for a in (Bm, Cm))
+    dts = dt.reshape(B, nc, Q, nh).permute(0, 1, 3, 2)    # [B,c,nh,Q]
+    states, S = [], S0.clone()                 # the forward's chunk states
     for c in range(nc):
-        sl = slice(c * Q, (c + 1) * Q)
         states.append(S)
         P = P_all[:, c]
-        w = torch.exp(P[:, -1:] - P) * dt[:, sl]       # the forward's form
-        S = (S * torch.exp(P[:, -1])[..., None, None]
-             + torch.einsum("bsh,bshp,bsn->bhpn", w, x[:, sl], Bm[:, sl]))
-    gend, G = [None] * nc, dS.clone()
-    for c in reversed(range(nc)):
-        sl = slice(c * Q, (c + 1) * Q)
-        gend[c] = G
-        P = P_all[:, c]
-        G = (torch.exp(P[:, -1])[..., None, None] * G
-             + torch.einsum("bth,bthp,btn->bhpn", torch.exp(P), dy[:, sl],
-                            Cm[:, sl]))
-    dx, dB, dC, ddt = (torch.zeros_like(a) for a in (x, Bm, Cm, dt))
+        w = torch.exp(P[..., -1:] - P) * dts[:, c]
+        S = (S * torch.exp(P[..., -1])[..., None, None]
+             + mm((xs[:, c] * w[..., None]).transpose(-1, -2), Bs[:, c]))
+    dx, ddt = torch.zeros_like(xs), torch.zeros_like(dts)
+    dB, dC = torch.zeros_like(Bs[:, :, 0]), torch.zeros_like(Cs[:, :, 0])
     dA, dD = torch.zeros_like(A), torch.zeros_like(D)
     causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
     strict = torch.tril(torch.ones(Q, Q, dtype=torch.bool), -1)
-    for c in range(nc):
-        sl = slice(c * Q, (c + 1) * Q)
-        xc, dyc, Bc, Cc, dtc = (a[:, sl] for a in (x, dy, Bm, Cm, dt))
-        Sin, Ge = states[c], gend[c]
-        lac = la[:, c].permute(0, 2, 1)                 # [B, nh, Q]
-        eP = torch.exp(torch.cumsum(lac, -1))
-        # P_t - P_s summed from step s + 1 on: [.., t, s].
-        rel = torch.cumsum(torch.where(strict, lac[..., :, None], 0.0), -2)
+    G = dS.clone()
+    for c in reversed(range(nc)):              # G is the chunk's end's
+        Sin = states[c]
+        xc, dyc, Bc, Cc, dtc = xs[:, c], dys[:, c], Bs[:, c], Cs[:, c], \
+            dts[:, c]
+        eP = torch.exp(P_all[:, c])
+        # exp(P_t - P_s) with P_t - P_s summed from step s + 1 on: [t, s].
+        rel = torch.cumsum(torch.where(strict, la[:, c, :, :, None], 0.0),
+                           -2)
         E = torch.where(causal, torch.exp(rel), 0.0)
         eLs = E[..., -1, :]
-        dts = dtc.permute(0, 2, 1)
-        CB = torch.einsum("btn,bsn->bts", Cc, Bc)[:, None]
-        DX = torch.einsum("bthp,bshp->bhts", dyc, xc)
-        Mp, Wc = E * CB, E * dts[..., None, :] * DX
+        CB = mm(Cc, Bc.transpose(-1, -2))                   # [B,1,t,s]
+        DX = mm(dyc, xc.transpose(-1, -2))                  # [B,nh,t,s]
+        Mp, Wc = E * CB, E * dtc[..., None, :] * DX
         W = Wc * CB
-        GB = torch.einsum("bhpn,bsn->bhsp", Ge, Bc)
-        SC = torch.einsum("bhpn,btn->bhtp", Sin, Cc)
-        SdY = torch.einsum("bhpn,bthp->bhtn", Sin, dyc)
-        GX = torch.einsum("bhpn,bshp->bhsn", Ge, xc)
-        dyh, xh = dyc.permute(0, 2, 1, 3), xc.permute(0, 2, 1, 3)
-        dXt = torch.einsum("bhts,bhtp->bhsp", Mp, dyh) + eLs[..., None] * GB
-        dx[:, sl] = (dts[..., None] * dXt
-                     + D[:, None, None] * dyh).permute(0, 2, 1, 3)
-        dC[:, sl] = (torch.einsum("bhts,bsn->bhtn", Wc, Bc)
-                     + eP[..., None] * SdY).sum(1)
-        dB[:, sl] = (torch.einsum("bhts,btn->bhsn", Wc, Cc)
-                     + (eLs * dts)[..., None] * GX).sum(1)
-        stY = eP * (dyh * SC).sum(-1)
-        us = eLs * dts * (xh * GB).sum(-1)
-        R = torch.diagonal(_rev(_excl(W, -1), -2), dim1=-2, dim2=-1)
-        dla = (eP[..., -1:] * (Ge * Sin).sum((-2, -1))[..., None]
+        GB = mm(Bc, G.transpose(-1, -2))                    # [B,nh,s,p]
+        us = eLs * dtc * (xc * GB).sum(-1)
+        dXt = eLs[..., None] * GB + mm(Mp.transpose(-1, -2), dyc)
+        dx[:, c] = dtc[..., None] * dXt + D[:, None, None] * dyc
+        SdY = mm(dyc, Sin)                                  # [B,nh,t,n]
+        stY = eP * (Cc * SdY).sum(-1)
+        dC[:, c] = (eP[..., None] * SdY + mm(Wc, Bc)).sum(1)
+        dB[:, c] = ((eLs * dtc)[..., None] * mm(xc, G)
+                    + mm(Wc.transpose(-1, -2), Cc)).sum(1)
+        R = _rev(_excl(W, -1), -2).diagonal(dim1=-2, dim2=-1)
+        dla = (eP[..., -1:] * (G * Sin).sum((-2, -1))[..., None]
                + _excl(us, -1) + _rev(stY, -1) + R)
-        ddt[:, sl] = ((xh * dXt).sum(-1) + A[:, None] * dla).permute(0, 2, 1)
-        dA += (dts * dla).sum((0, 2))
-        dD += (dyh * xh).sum((0, 2, 3))
-    return dx[:, :T], dB[:, :T], dC[:, :T], ddt[:, :T], dA, dD, G
+        ddt[:, c] = (xc * dXt).sum(-1) + A[:, None] * dla
+        dA += (dtc * dla).sum((0, 2))
+        dD += DX.diagonal(dim1=-2, dim2=-1).sum((0, 2))
+        G = (torch.exp(P_all[:, c, :, -1])[..., None, None] * G
+             + mm((eP[..., None] * dyc).transpose(-1, -2), Cc))
+    back = dx.permute(0, 1, 3, 2, 4).reshape(B, nc * Q, nh, -1)[:, :T]
+    ddt = ddt.permute(0, 1, 3, 2).reshape(B, nc * Q, nh)[:, :T]
+    return (back, dB.reshape(B, nc * Q, -1)[:, :T],
+            dC.reshape(B, nc * Q, -1)[:, :T], ddt, dA, dD, G)
 
 
-def _wkv_bwd_twin(r, k, v, lw, u, S0, dy, dS):
+def _wkv_bwd_twin(r, k, v, lw, u, S0, dy, dS, mm=_exact):
     B, T, H, hd = r.shape
     nc = -(-T // Q)
     r, k, v, lw, dy = (_pad(a, nc * Q).permute(0, 2, 1, 3)
                        for a in (r, k, v, lw, dy))       # [B, H, T, hd]
-    C_all = torch.cat([torch.zeros((B, H, nc, 1, hd)),
-                       torch.cumsum(lw.reshape(B, H, nc, Q, hd), 3)], 3)
-    states, S = [], S0.clone()
+    # Base-2 logarithms of the decays, cumulative within each chunk.
+    C_all = torch.cat([torch.zeros((B, H, nc, 1, hd)), torch.cumsum(
+        (lw * _LOG2E).reshape(B, H, nc, Q, hd), 3)], 3)
+    states, S = [], S0.clone()                 # the forward's chunk states
     for c in range(nc):
         sl = slice(c * Q, (c + 1) * Q)
         states.append(S)
         C = C_all[:, :, c]
-        Kh = k[:, :, sl] * torch.exp(C[:, :, Q:] - C[:, :, 1:])
-        S = (torch.exp(C[:, :, Q])[..., None] * S
-             + Kh.transpose(-1, -2) @ v[:, :, sl])
-    gend, G = [None] * nc, dS.clone()
-    for c in reversed(range(nc)):
-        sl = slice(c * Q, (c + 1) * Q)
-        gend[c] = G
-        C = C_all[:, :, c]
-        Rt = r[:, :, sl] * torch.exp(C[:, :, :Q])
-        G = (torch.exp(C[:, :, Q])[..., None] * G
-             + Rt.transpose(-1, -2) @ dy[:, :, sl])
+        Kh = k[:, :, sl] * torch.exp2(C[:, :, Q:] - C[:, :, 1:])
+        S = (torch.exp2(C[:, :, Q])[..., None] * S
+             + mm(Kh.transpose(-1, -2), v[:, :, sl]))
     dr, dk, dv, dlw = (torch.zeros_like(a) for a in (r, k, v, lw))
     du = torch.zeros_like(u)
-    strict = torch.tril(torch.ones(Q, Q, dtype=torch.bool), -1)
     lower = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
-    for c in range(nc):
+    strict = torch.tril(torch.ones(SUB, SUB, dtype=torch.bool), -1)
+    m, top, bot = SUB, slice(0, SUB), slice(SUB, Q)
+    G = dS.clone()
+    for c in reversed(range(nc)):              # G is the chunk's end's
         sl = slice(c * Q, (c + 1) * Q)
         rc, kc, vc, dyc = (a[:, :, sl] for a in (r, k, v, dy))
-        Sin, Ge, C = states[c], gend[c], C_all[:, :, c]
-        E = torch.where(strict[..., None], torch.exp(
-            C[:, :, :Q, None] - C[:, :, None, 1:]), 0.0)    # [B,H,t,s,hd]
-        bonus = (rc * u[:, None] * kc).sum(-1)
-        A_ = (torch.einsum("bhtc,bhtsc,bhsc->bhts", rc, E, kc)
-              + torch.diag_embed(bonus))
-        dA_ = torch.where(lower, dyc @ vc.transpose(-1, -2), 0.0)
-        dAd = torch.diagonal(dA_, dim1=-2, dim2=-1)[..., None]
-        Gv = vc @ Ge.transpose(-1, -2)                      # [s, c]
-        eLs = torch.exp(C[:, :, Q:] - C[:, :, 1:])
-        dv[:, :, sl] = A_.transpose(-1, -2) @ dyc + (kc * eLs) @ Ge
-        drc = (torch.einsum("bhts,bhsc,bhtsc->bhtc", dA_, kc, E)
-               + dAd * u[:, None] * kc
-               + torch.exp(C[:, :, :Q]) * (dyc @ Sin.transpose(-1, -2)))
-        dkc = (torch.einsum("bhts,bhtc,bhtsc->bhsc", dA_, rc, E)
-               + dAd * u[:, None] * rc + eLs * Gv)
+        Sin, C = states[c], C_all[:, :, c]
+        EC = torch.exp2(C[:, :, :Q])                        # e^{C[t]}
+        EL = torch.exp2(C[:, :, Q:] - C[:, :, 1:])          # e^{C[L]-C[s+1]}
+        Fm = torch.exp2(C[:, :, m:m + 1] - C[:, :, 1:m + 1])    # s < m
+        Em = torch.exp2(C[:, :, m:Q] - C[:, :, m:m + 1])        # t >= m
+        Km, Rm = kc[:, :, top] * Fm, rc[:, :, bot] * Em
+        dA_ = torch.where(lower, mm(dyc, vc.transpose(-1, -2)), 0.0)
+        dAd = dA_.diagonal(dim1=-2, dim2=-1)[..., None]
+        # The two diagonal 16 x 16 blocks, explicit: E3[b,h,blk,t,s,c].
+        Cb = C[:, :, :Q].reshape(B, H, 2, SUB, 1, hd)
+        Cs1 = C[:, :, 1:].reshape(B, H, 2, 1, SUB, hd)
+        E3 = torch.where(strict[..., None], torch.exp2(Cb - Cs1), 0.0)
+        rb, kb = (a.reshape(B, H, 2, SUB, hd) for a in (rc, kc))
+        dAb = torch.stack([dA_[:, :, top, top], dA_[:, :, bot, bot]], 2)
+        A_ = torch.zeros((B, H, Q, Q))
+        Ad = (torch.einsum("bhxtc,bhxtsc,bhxsc->bhxts", rb, E3, kb)
+              + torch.diag_embed((rb * u[:, None, None] * kb).sum(-1)))
+        A_[:, :, top, top], A_[:, :, bot, bot] = Ad[:, :, 0], Ad[:, :, 1]
+        A_[:, :, bot, top] = mm(Rm, Km.transpose(-1, -2))
+        dr_d = torch.einsum("bhxts,bhxsc,bhxtsc->bhxtc", dAb, kb, E3)
+        dk_d = torch.einsum("bhxts,bhxtc,bhxtsc->bhxsc", dAb, rb, E3)
+        drc = (EC * mm(dyc, Sin.transpose(-1, -2)) + dr_d.reshape(rc.shape)
+               + dAd * u[:, None] * kc)
+        drc[:, :, bot] += Em * mm(dA_[:, :, bot, top], Km)
+        Gv = mm(vc, G.transpose(-1, -2))                    # [s, c]
+        dkc = EL * Gv + dk_d.reshape(kc.shape) + dAd * u[:, None] * rc
+        dkc[:, :, top] += Fm * mm(dA_[:, :, bot, top].transpose(-1, -2), Rm)
+        dv[:, :, sl] = mm(A_.transpose(-1, -2), dyc) + mm(kc * EL, G)
         dr[:, :, sl], dk[:, :, sl] = drc, dkc
         du += (dAd * rc * kc).sum((0, 2))
         dC = torch.zeros((B, H, Q + 1, hd))
         dC[:, :, :Q] += rc * (drc - dAd * u[:, None] * kc)
         dC[:, :, 1:] -= kc * (dkc - dAd * u[:, None] * rc)
-        dC[:, :, Q] += ((kc * eLs * Gv).sum(2)
-                        + torch.exp(C[:, :, Q]) * (Ge * Sin).sum(-1))
+        dC[:, :, Q] += ((kc * EL * Gv).sum(2)
+                        + torch.exp2(C[:, :, Q]) * (G * Sin).sum(-1))
         dlw[:, :, sl] = _rev(dC, 2)[:, :, 1:]
+        G = (torch.exp2(C[:, :, Q])[..., None] * G
+             + mm((rc * EC).transpose(-1, -2), dyc))
     back = [a.permute(0, 2, 1, 3)[:, :T] for a in (dr, dk, dv, dlw)]
     return (*back, du, G)
 
@@ -448,6 +489,48 @@ def test_wkv_bwd_chunked_algebra_holds_f32_tolerance(decay_shift, T):
     got = _wkv_bwd_twin(c["r"], c["k"], c["v"], c["lw"], c["u"],
                         c["state"], c["dy"], c["dstate"])
     _assert_rel(got, _autograd_wkv(c, True), 2e-5, WKV_NAMES)
+
+
+def _rel_err(got, want) -> float:
+    return max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("kind", ["ssm_scan", "rwkv6_wkv"])
+def test_bwd_products_need_3xtf32(kind):
+    """Why every product of the two backward kernels runs in 3xTF32: with
+    the tensor cores' TF32 rounding emulated (split_tf32's bit operations
+    on an int32 view), the twins hold 2e-5 of max|want| at the models'
+    widths (hp = N = 64, hd 64) in 3xTF32, and a single TF32 product per
+    operand pair misses it by more than tenfold."""
+    if kind == "ssm_scan":
+        c = _t(_ssm_case(31, 1, 96, 2, 64, 64))
+        args = [c[k] for k in ("x", "Bm", "Cm", "dt", "A", "D", "state",
+                               "dy", "dstate")]
+        twin, want = _ssd_bwd_twin, _autograd_ssm(c, True)
+    else:
+        c = _t(_wkv_case(32, 1, 96, 2, 64))
+        args = [c[k] for k in ("r", "k", "v", "lw", "u", "state", "dy",
+                               "dstate")]
+        twin, want = _wkv_bwd_twin, _autograd_wkv(c, True)
+    assert _rel_err(twin(*args, mm=_mm_tf32(3)), want) <= 2e-5
+    assert _rel_err(twin(*args, mm=_mm_tf32(1)), want) > 2e-4
+
+
+def test_tf32_split_emulation():
+    """_tf32 keeps 10 mantissa bits, rounded to nearest with ties away from
+    zero, or truncated; hi + lo of the split holds an f32 to ~2^-21."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 4, -(1 + ulp / 2), 1 + ulp])
+    assert torch.equal(_tf32(x), torch.tensor([1 + ulp, 1.0, -(1 + ulp),
+                                               1 + ulp]))
+    assert _tf32(torch.tensor([1 + ulp * 0.99]), False).item() == 1.0
+    a = torch.from_numpy(np.random.default_rng(0).normal(size=1000).astype(
+        np.float32))
+    hi = _tf32(a)
+    lo = _tf32(a - hi, False)
+    assert ((hi - a).abs() <= a.abs() * 2.0 ** -11).all()
+    assert ((hi + lo - a).abs() <= a.abs() * 2.0 ** -21).all()
 
 
 def test_ssd_dla_needs_its_terms_summed_without_cancellation():
