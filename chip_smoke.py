@@ -132,15 +132,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      PERF.md, printed only), with a SASS line: the count of HMMA
      (tensor-core mma.sync) instructions in the backward's chunk kernel,
      which must be above 0.
+  13. distribution: the planning CLI (`launch/plan.py --tiers tpu`) for
+     agh and gh, every pair on a TPU tier and one unmet entry per query
+     type; then, on a one-process NCCL group and a one-device ("data",
+     "model") mesh, full-width qwen2-0.5b in bf16 made DTensors by
+     `distribute_params` prefills the served batch's shape (B 8 x T 999)
+     and decodes 32 steps with a DTensor cache, the attention kernels on
+     local shards through `local_map`: the logits held against the
+     unsharded kernel path under phase 5's bf16 criteria (the largest
+     difference printed), flash and decode launched as often as there,
+     both walls printed; the same with `seq_shard_attention`; and
+     `pipelined_forward` over the 24 layers at one stage, 4 microbatches
+     of B 2 x T 256, bit for bit the sequential run.
 
-Phases 8-12 print their numbers as JSON lines {"risk": ...},
+Phases 8-13 print their numbers as JSON lines {"risk": ...},
 {"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...},
-{"training": ...} and {"training_recurrent": ...}. The line before the
-last is the kernel table as JSON; the last line is {"ok": true,
-"device": {...}}. Without a CUDA device the run fails. To run phase 9,
-10, 11 or 12 alone on a card: python -c "import chip_smoke as cs;
-cs.plan_and_replan()" (or cs.moe_and_io(), cs.train_and_check(),
-cs.train_recurrent()).
+{"training": ...}, {"training_recurrent": ...} and
+{"distribution": ...}. The line before the last is the kernel table as
+JSON; the last line is {"ok": true, "device": {...}}. Without a CUDA
+device the run fails. To run phase 9, 10, 11, 12 or 13 alone on a card:
+python -c "import chip_smoke as cs; cs.plan_and_replan()" (or
+cs.moe_and_io(), cs.train_and_check(), cs.train_recurrent(),
+cs.shard_and_pipeline()).
 """
 from __future__ import annotations
 
@@ -3017,6 +3030,243 @@ def train_recurrent(dev=None, seed: int = 0) -> dict:
         scan_bwd_errors={f"{k[0]} {k[1]}": v for k, v in errs.items()},
         times=timed), rows=rows)
 
+# Phase 13: the distribution layer on a one-device mesh. The served batch's
+# shape (8 prompts of 999 tokens, 32 decode steps), and the pipeline's 4
+# microbatches of B 2 x T 256.
+SHARD_B, SHARD_T, SHARD_STEPS = 8, max(PROMPT_LENS), NEW_TOKENS
+PIPE_MICRO, PIPE_B, PIPE_T = 4, 2, 256
+SHARDED_PATH = f"{ARCH} sharded (one-device mesh)"
+SEQ_SHARDED_PATH = f"{ARCH} seq-sharded prefill (one-device mesh)"
+PIPE_PATH = f"{ARCH} pipeline (1 stage, {PIPE_MICRO} microbatches)"
+
+
+def plan_cli_tpu() -> dict:
+    """Phase 13.1: `launch.plan` with `--tiers tpu` for agh and gh into a
+    temporary --out: every pair on a TPU_TIERS tier, one unmet entry per
+    query type, the printed JSON the written one."""
+    import io
+    import tempfile
+
+    from repro_torch.core import default_instance
+    from repro_torch.core.bridge import TPU_TIERS
+    from repro_torch.launch import plan as plan_cli
+
+    names, I = {t[0] for t in TPU_TIERS}, default_instance().I
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        for method in ("agh", "gh"):
+            path, buf = Path(d) / f"{method}.json", io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = plan_cli.main(["--method", method, "--tiers", "tpu",
+                                    "--out", str(path)])
+            host_s = time.perf_counter() - t0
+            res = json.loads(path.read_text())
+            tiers = sorted({p["tier"] for p in res["pairs"]})
+            if rc or json.loads(buf.getvalue()) != res:
+                fail(f"plan --method {method} --tiers tpu: exit {rc} or its "
+                     f"printed JSON is not its --out file")
+            if not tiers or not set(tiers) <= names:
+                fail(f"plan --tiers tpu placed pairs on {tiers}")
+            if len(res["unmet"]) != I:
+                fail(f"plan --tiers tpu: {len(res['unmet'])} unmet "
+                     f"entries for {I} query types")
+            print(f"  {method} --tiers tpu: objective {res['objective']}, "
+                  f"stage-1 cost {res['stage1_cost']}, {len(res['pairs'])} "
+                  f"pairs on {tiers}; {host_s:.3f} s on the host (solver "
+                  f"{res['runtime_s']} s)", flush=True)
+            out[method] = dict(objective=res["objective"],
+                               stage1_cost=res["stage1_cost"],
+                               pairs=len(res["pairs"]), tiers=tiers,
+                               host_s=host_s, solver_s=res["runtime_s"])
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _whole(t):
+    from repro_torch.device import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def decode_run(params, cfg, toks, dec, dev) -> tuple:
+    """Prefill toks, then one decode step per column of dec, on the
+    kernels, with every launch count set to 0 just before and read just
+    after. Returns (logits [B, 1 + steps, V] f32, wall s, launches)."""
+    from repro_torch.models import decoder
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    T, n = toks.shape[1], dec.shape[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, cache = decoder.prefill(params, cfg, toks, max_len=T + n)
+        out = [_whole(lg)]
+        for s in range(n):
+            lg, cache = decoder.decode_step(params, cfg, cache,
+                                            dec[:, s:s + 1], T + s)
+            out.append(_whole(lg))
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    got = torch.cat(out, dim=1).float()
+    if not torch.isfinite(got).all():
+        fail(f"non-finite logits ({cfg.dtype}, "
+             f"seq_shard_attention={cfg.seq_shard_attention})")
+    return got, wall, {k: op.launches for k, op in ops.items()
+                       if op.launches}
+
+
+def sharded_paths(params, cfg, mesh, dev, seed) -> dict:
+    """Phases 13.2-13.3: the served batch's prefill and decode steps on the
+    parameters made DTensors by `distribute_params` (the cache placed by
+    `cache_specs`), without and with `seq_shard_attention`, against the
+    unsharded kernel path of the same weights under phase 5's bf16
+    criteria (the f32 logits of the same bf16-rounded weights, unsharded,
+    are the truth). Both attention kernels must launch as often as on the
+    unsharded path."""
+    from repro_torch.parallel.sharding import distribute_params
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    toks = torch.randint(1, cfg.vocab_size, (SHARD_B, SHARD_T),
+                         generator=gen, device=dev)
+    dec = torch.randint(1, cfg.vocab_size, (SHARD_B, SHARD_STEPS),
+                        generator=gen, device=dev)
+    decode_run(params, cfg, toks[:, :64], dec[:, :2], dev)  # warm-up
+    want, wall0, n0 = decode_run(params, cfg, toks, dec, dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = decode_run(_tree_map(lambda x: x.float(), params), cfg32, toks,
+                     dec, dev)[0]
+    rel0 = row_rel(want, f32)
+    print(f"  unsharded: {wall0:.3f} s, launches {n0}; vs the f32 logits "
+          f"{rel0:.3e}", flush=True)
+    sp = distribute_params(params, mesh)
+    out = dict(unsharded=dict(wall_s=wall0, launches=n0, f32_row_rel=rel0))
+    for label, c, path in (
+            ("sharded", cfg, SHARDED_PATH),
+            ("seq_sharded", dataclasses.replace(cfg,
+                                                seq_shard_attention=True),
+             SEQ_SHARDED_PATH)):
+        phase(f"13.{2 if label == 'sharded' else 3} {path}")
+        decode_run(sp, c, toks[:, :64], dec[:, :2], dev)     # warm-up
+        got, wall, n = decode_run(sp, c, toks, dec, dev)
+        err = (got - want).abs().max().item()
+        rel, rel_f32 = row_rel(got, want), row_rel(got, f32)
+        same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        ok = rel <= E2E_BF16_REL and rel_f32 <= 2 * rel0 + E2E_TOL
+        print(f"  {label}: {wall:.3f} s (unsharded {wall0:.3f} s), "
+              f"launches {n}; logits vs the unsharded kernel path: max abs "
+              f"diff {err:.3e}, max_row_rel_err {rel:.3e} (tol "
+              f"{E2E_BF16_REL:g}), vs f32 {rel_f32:.3e} (tol 2x "
+              f"{rel0:.3e} + {E2E_TOL:g}); same greedy token in "
+              f"{same:.3f} of rows {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"{label} logits disagree with the unsharded kernel path")
+        for k in ("flash_attention", "decode_attention"):
+            if not n.get(k) or n.get(k) != n0.get(k):
+                fail(f"{label}: {k} launched {n.get(k, 0)} times, the "
+                     f"unsharded path {n0.get(k, 0)}")
+        out[label] = dict(path=path, wall_s=wall, launches=n,
+                          max_abs_diff=err, max_row_rel_err=rel,
+                          f32_row_rel=rel_f32, same_greedy=same)
+    return out
+
+
+def pipeline_one_stage(params, cfg, dev, seed) -> dict:
+    """Phase 13.4: `pipelined_forward` over the layer stack split into one
+    stage ("stage" mesh of the one device), 4 microbatches of B 2 x T 256,
+    each stage running the decoder's layer body on the kernels: bit for
+    bit the sequential run; flash_attention launched once per layer per
+    microbatch."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import decoder
+    from repro_torch.parallel.pipeline import (pipelined_forward,
+                                               split_stages)
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("stage",))
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    toks = torch.randint(1, cfg.vocab_size, (PIPE_MICRO, PIPE_B, PIPE_T),
+                         generator=gen, device=dev)
+
+    def stage_fn(sp, x):
+        for i in range(sp["ln1"].shape[0]):
+            x = decoder._train_layer(decoder._layer(sp, i), cfg, x, True)
+        return x
+
+    ops = kernel_ops()
+    with torch.no_grad():
+        xs = torch.stack([decoder._embed(params, cfg, toks[m], None)
+                          for m in range(PIPE_MICRO)])
+        run = pipelined_forward(stage_fn, mesh, 1, PIPE_MICRO)
+        stages = split_stages(params["layers"], 1)
+        run(stages, xs)                                      # warm-up
+        for op in ops.values():
+            op.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = run(stages, xs)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        n = {k: op.launches for k, op in ops.items() if op.launches}
+        t0 = time.perf_counter()
+        want = torch.stack([stage_fn(params["layers"], xs[m])
+                            for m in range(PIPE_MICRO)])
+        _sync(dev)
+        wall_seq = time.perf_counter() - t0
+    same = torch.equal(got, want)
+    print(f"  {PIPE_PATH}: {wall:.3f} s (sequential {wall_seq:.3f} s), "
+          f"launches {n}; bit for bit the sequential run: {same}",
+          flush=True)
+    if not same:
+        fail("the one-stage pipeline differs from the sequential run")
+    if n.get("flash_attention") != cfg.n_layers * PIPE_MICRO:
+        fail(f"the pipeline launched flash_attention "
+             f"{n.get('flash_attention', 0)} times, not "
+             f"{cfg.n_layers * PIPE_MICRO}")
+    return dict(path=PIPE_PATH, wall_s=wall, sequential_wall_s=wall_seq,
+                launches=n, bitwise_equal=same)
+
+
+def shard_and_pipeline(dev=None, seed: int = 0) -> dict:
+    """Phase 13: the planning CLI on the TPU catalog, then, on a
+    one-process NCCL group (a HashStore: no port, no network), the sharded
+    main path, the context-parallel prefill and the one-stage pipeline of
+    full-width qwen2-0.5b in bf16. Returns the phase's numbers; fails on
+    any check."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decoder
+
+    dev = dev or torch.device("cuda")
+    t0 = time.perf_counter()
+    phase("13.1 the planning CLI on the TPU tier catalog")
+    out = dict(plan_cli=plan_cli_tpu())
+    phase("13.2 the sharded main path on a one-device NCCL mesh")
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        cfg = get_config(ARCH)
+        params = decoder.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        out.update(sharded_paths(params, cfg, mesh, dev, seed))
+        phase(f"13.4 {PIPE_PATH}")
+        out["pipeline"] = pipeline_one_stage(params, cfg, dev, seed)
+        del params
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 13 took {out['wall_s']:.1f}s", flush=True)
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3130,6 +3380,16 @@ def main(argv=None) -> int:
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"training_recurrent":
                       recurrent["training_recurrent"]}))
+
+    distribution = shard_and_pipeline(dev, args.seed)
+    for r in rows:
+        for label in ("sharded", "seq_sharded", "pipeline"):
+            n = distribution[label]["launches"].get(r["name"], 0)
+            if n:
+                r["launches_by_path"][distribution[label]["path"]] = n
+                r["launches"] += n
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"distribution": distribution}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import is_dtensor
+
 
 def aligned16(shape, strides, itemsize: int, data_ptr: int) -> bool:
     """Whether a tensor of this shape, element strides, element size and
@@ -18,8 +20,13 @@ def aligned16(shape, strides, itemsize: int, data_ptr: int) -> bool:
 
 
 def check_aligned(kernel: str, **tensors: torch.Tensor) -> None:
-    """Raise ValueError naming the first tensor `kernel` cannot read."""
+    """Raise ValueError naming the first tensor `kernel` cannot read, and
+    TypeError for a DTensor: a kernel reads one rank's local tensors, so
+    a sharded caller runs it through `local_map`."""
     for name, t in tensors.items():
+        if is_dtensor(t):
+            raise TypeError(f"{kernel}: {name} is a DTensor; call the "
+                            f"kernel on local shards (local_map)")
         if not aligned16(t.shape, t.stride(), t.element_size(),
                          t.data_ptr()):
             raise ValueError(

@@ -23,15 +23,25 @@ Public entry points:
 Training runs a cache-free layer stack; with `cfg.remat` each layer (each
 super-block in the hybrid) is checkpointed, as the reference's
 `jax.checkpoint`, so its activations are recomputed in the backward.
+
+Sharded: the three entry points take parameters made DTensors by
+`parallel.sharding.distribute_params`. The dense GQA decoders with the
+dense MLP (qwen2-*, deepseek-7b) run so: `prefill` places its cache by
+`cache_specs`, the embeddings are placed by `batch_spec`, the tensors a
+step builds (tokens, positions) enter as replicated DTensors, and the
+attention kernels run on local shards (`layers.py`). The MoE, RWKV6 and
+Mamba2 mixers raise NotImplementedError on DTensors.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..device import is_dtensor
+from ..parallel.sharding import batch_spec, distribute_cache, to_placements
 from .config import ModelConfig
 from .layers import (attention_apply, chunked_ce_loss, decode_key_positions,
-                     mlp_apply, rms_norm)
+                     mlp_apply, replicated_like, rms_norm)
 from .mamba2 import mamba2_apply, mamba2_cache_init, mamba2_params
 from .moe import moe_apply, moe_params
 from .rwkv6 import rwkv6_apply, rwkv6_cache_init, rwkv6_params
@@ -339,15 +349,28 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Token embeddings [B, T, d], after the projected prefix when one is
     given. Codebook tokens [B, T, nq] sum their embeddings in the model's
     dtype, in the reference's order ((0 + e0) + e1) + ..."""
+    tokens = replicated_like(tokens, params["embed"])
     if cfg.n_codebooks:
         x = sum(params["embed"][q][tokens[..., q]]
                 for q in range(cfg.n_codebooks))
     else:
         x = params["embed"][tokens]
     if prefix is not None:
-        pre = prefix.to(x.dtype) @ params["prefix_proj"]
+        pre = (replicated_like(prefix, params["embed"]).to(x.dtype)
+               @ params["prefix_proj"])
         x = torch.cat([pre, x], dim=1)
     return x
+
+
+def _batch_layout(x: torch.Tensor) -> torch.Tensor:
+    """DTensor activations [B, ...] with the batch over the batch axes
+    where it divides (`batch_spec`, as the reference places its tokens),
+    replicated on every other mesh dim; plain tensors as they are."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, to_placements(batch_spec(mesh, x.shape),
+                                              mesh))
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -371,7 +394,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     B = tokens.shape[0]
     T = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
     cache = init_cache(cfg, B, max_len or T, tokens.device)
-    x = _embed(params, cfg, tokens, prefix)
+    if is_dtensor(params["embed"]):
+        cache = distribute_cache(cache, params["embed"].device_mesh)
+    x = _batch_layout(_embed(params, cfg, tokens, prefix))
     h = _run_layers(params, cfg, x, cache, 0, use_kernels)
     return _logits(params, cfg, h[:, -1:]), cache
 
@@ -382,21 +407,23 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     number of positions already in the cache (prefix included). Updates
     `cache` in place and returns (logits [B, 1, V] or [B, 1, nq, V],
     cache)."""
-    x = _embed(params, cfg, tokens, None)
+    x = _batch_layout(_embed(params, cfg, tokens, None))
     h = _run_layers(params, cfg, x, cache, int(pos), use_kernels)
     return _logits(params, cfg, h), cache
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                use_kernels: bool = True) -> torch.Tensor:
-    """Next-token cross-entropy (f32 scalar). batch: tokens [B,S] (or
-    [B,S,nq]), targets the same shape, optional prefix [B,P,d_model]
-    whose rows are dropped before the loss; codebook configs average one
-    CE per codebook."""
+    """Next-token cross-entropy (f32 scalar, a plain tensor on every rank
+    when the parameters are DTensors, whose gradients are then DTensors:
+    `full_tensor()` gives one whole). batch: tokens [B,S] (or [B,S,nq]),
+    targets the same shape, optional prefix [B,P,d_model] whose rows are
+    dropped before the loss; codebook configs average one CE per
+    codebook."""
     tokens = batch["tokens"]
     check_trainable(cfg)
     prefix = batch.get("prefix")
-    x = _embed(params, cfg, tokens, prefix)
+    x = _batch_layout(_embed(params, cfg, tokens, prefix))
     h = _train_layers(params, cfg, x, use_kernels)
     h = rms_norm(h, params["final_norm"])
     P = 0 if prefix is None else prefix.shape[1]
@@ -406,6 +433,9 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
         losses = [chunked_ce_loss(heads[q], h, batch["targets"][..., q],
                                   cfg.loss_chunk)
                   for q in range(cfg.n_codebooks)]
-        return torch.mean(torch.stack(losses))
-    return chunked_ce_loss(params["head"], h, batch["targets"],
-                           cfg.loss_chunk)
+        loss = torch.mean(torch.stack(losses))
+    else:
+        loss = chunked_ce_loss(params["head"], h, batch["targets"],
+                               cfg.loss_chunk)
+    # sharded: the whole loss on every rank, a plain scalar to step on
+    return loss.full_tensor() if is_dtensor(loss) else loss

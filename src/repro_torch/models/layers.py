@@ -10,15 +10,31 @@ Attention has two paths with the same math:
 Under autograd on CUDA the prefill kernel's op runs its backward kernel
 too (`kernels.flash_attention`'s autograd Function). `chunked_ce_loss` is
 the training loss over sequence chunks.
+
+`cfg.seq_shard_attention` (prefill, T > 1) is the reference's
+context-parallel variant: off a mesh its prefill attention is
+`attention_unchunked`, the single-einsum form, except on CUDA with the
+kernels, where the flash kernel runs (it takes any query positions). On
+DTensor activations (`parallel.sharding.distribute_params`) the kernels and
+the in-place cache writes run on each rank's local shards through
+`local_map` with declared placements: batch over the batch axes where it
+divides; over `model`, the query rows under `seq_shard_attention` where T
+divides (the keys and values replicated, each shard reading its own query
+positions), else whole KV heads where they divide, else replicated, since a
+kernel needs whole heads and whole caches.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..device import is_dtensor
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
+from ..parallel.sharding import batch_spec
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -31,6 +47,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def replicated_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """t, which every rank holds whole, as a replicated DTensor on the mesh
+    of `like` when that is a DTensor (a DTensor op takes no plain tensor,
+    in the forward or in the backward); else t itself."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +78,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(hd, theta, x.device)                 # [hd/2]
     ang = positions[..., None].float() * freqs              # [..., T, hd/2]
     ang = ang[..., None, :]                                 # [..., T, 1, hd/2]
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = replicated_like(torch.cos(ang), x), replicated_like(
+        torch.sin(ang), x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -67,6 +96,23 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     if window > 0:
         m &= k_pos[None, :] > q_pos[:, None] - window
     return m
+
+
+def attention_unchunked(q, k, v, q_pos, k_pos, window: int = 0):
+    """Single-einsum attention: materializes [B, KV, G, Tq, Tk] logits.
+    The reference's form for the seq-sharded (context-parallel) prefill,
+    where the query rows are split across the `model` axis."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Tq, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    s = s * (hd ** -0.5)
+    m = _mask(q_pos, k_pos, window)
+    s = s.masked_fill(~m, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, Tq, H, hd).to(q.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,16 +154,92 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _prefill_attention(q, k, v, q_pos, k_pos, window: int,
-                       use_kernels: bool) -> torch.Tensor:
+                       use_kernels: bool, unchunked: bool = False
+                       ) -> torch.Tensor:
     """[B,T,H,hd] x [B,Tk,KV,hd] -> [B,T,H,hd]. The kernel reads the
     model's tensors as [B,H,T,hd] views and writes its output in the
-    model's layout, so neither side is copied."""
-    if not use_kernels:
-        return attention(q, k, v, q_pos, k_pos, window=window)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), q_pos.to(torch.int32),
-                          k_pos.to(torch.int32), window=window)
-    return out.transpose(1, 2)
+    model's layout, so neither side is copied. `unchunked`: the
+    seq-sharded variant's single einsum, unless the kernel runs on CUDA."""
+    if use_kernels and (q.is_cuda or not unchunked):
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), q_pos.to(torch.int32),
+                              k_pos.to(torch.int32), window=window)
+        return out.transpose(1, 2)
+    if unchunked:
+        return attention_unchunked(q, k, v, q_pos, k_pos, window=window)
+    return attention(q, k, v, q_pos, k_pos, window=window)
+
+
+def _placements(mesh, B: int, KV: int, T: int | None = None):
+    """Placements of a kernel's operands over [B, T|S, H|KV, hd]: (q and
+    the output, k/v or the cache, the query positions [T]). T is given for
+    the seq-sharded prefill."""
+    from torch.distributed.tensor import Replicate, Shard
+    bx = batch_spec(mesh, (B,))[0]
+    batch = {bx} if isinstance(bx, str) else set(bx or ())
+    qp, kvp, posp = [], [], []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if name in batch:
+            pl = (Shard(0), Shard(0), Replicate())
+        elif name == "model" and T is not None and T % n == 0:
+            pl = (Shard(1), Replicate(), Shard(0))
+        elif name == "model" and KV % n == 0:
+            pl = (Shard(2), Shard(2), Replicate())
+        else:
+            pl = (Replicate(),) * 3
+        for out, p in zip((qp, kvp, posp), pl):
+            out.append(p)
+    return tuple(qp), tuple(kvp), tuple(posp)
+
+
+def _local_map(fn, out_placements, in_placements, mesh):
+    """`local_map` of fn; out_placements is a tuple with one entry per
+    output."""
+    from torch.distributed.tensor.experimental import local_map
+    if len(out_placements) == 1:    # one output: its placements, a list
+        out_placements = list(out_placements[0])
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    DTensor's gradient is built from the local one with the strides of the
+    forward's (contiguous) tensor."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _sharded_prefill(q, k, v, q_pos, k_pos, window: int, use_kernels: bool,
+                     unchunked: bool):
+    """`_prefill_attention` on DTensor q, k, v, rank by rank."""
+    mesh = q.device_mesh
+    qp, kvp, posp = _placements(mesh, q.shape[0], k.shape[2],
+                                q.shape[1] if unchunked else None)
+    q_pos = replicated_like(q_pos, q)
+
+    def fn(q, k, v, q_pos, k_pos):
+        # Local tensors, and their gradients, contiguous as DTensor takes
+        # them to be (copies only where they are not).
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return _prefill_attention(q, k, v, q_pos, k_pos, window, use_kernels,
+                                  unchunked).contiguous()
+    out = _local_map(fn, (qp,), (qp, kvp, kvp, posp, None), mesh)(
+        q, k, v, q_pos, k_pos)
+    if unchunked:
+        # query rows back to the unsharded variant's layout, for the
+        # output projection (which may not flatten a sharded T into B T)
+        out = out.redistribute(mesh, _placements(mesh, q.shape[0],
+                                                 k.shape[2])[0])
+    return out
 
 
 def decode_key_positions(S: int, pos0: int, window: int,
@@ -155,6 +277,17 @@ def _decode_attention(q, kc, vc, pos: int, k_pos, window: int,
     return out.reshape(B, 1, H, hd)
 
 
+def _sharded_decode(q, kc, vc, pos: int, k_pos, window: int,
+                    use_kernels: bool):
+    """`_decode_attention` on a DTensor q and cache, rank by rank."""
+    mesh = q.device_mesh
+    qp, kvp, _ = _placements(mesh, q.shape[0], kc.shape[2])
+
+    def fn(q, kc, vc, k_pos):
+        return _decode_attention(q, kc, vc, pos, k_pos, window, use_kernels)
+    return _local_map(fn, (qp,), (qp, kvp, kvp, None), mesh)(q, kc, vc, k_pos)
+
+
 def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     cache_kv: tuple[torch.Tensor, torch.Tensor] | None,
                     pos0: int, window: int | None = None,
@@ -165,7 +298,8 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     positions [0, pos0); the block writes the new T keys/values into it IN
     PLACE (the reference returns new arrays) and returns the same tensors.
     k_pos: for a decode step, `decode_key_positions(S, pos0, window)`,
-    built here when not given.
+    built here when not given. x, the weights and the cache may be
+    DTensors: the kernels and the cache writes then run on local shards.
     Returns (out [B, T, d], cache_kv); with no cache, the fresh (k, v).
     """
     B, T, d = x.shape
@@ -183,50 +317,82 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q_pos = pos0 + torch.arange(T, device=x.device)
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k = apply_rope(k, q_pos, cfg.rope_theta)
+    sharded = is_dtensor(q)
+    if T > 1 or cache_kv is None:
+        # Prefill (pos0 == 0 by convention when there is a cache): attend
+        # over the fresh K/V with the causal(+window) mask.
+        unchunked = cfg.seq_shard_attention and T > 1
+        out = (_sharded_prefill if sharded else _prefill_attention)(
+            q, k, v, q_pos, q_pos, window, use_kernels, unchunked)
     if cache_kv is None:
-        out = _prefill_attention(q, k, v, q_pos, q_pos, window, use_kernels)
-        new_cache = (k, v)
-    elif T > 1:
-        # Prefill (pos0 == 0 by convention): attend over the fresh K/V with
-        # the causal(+window) mask, then write them into the cache.
-        out = _prefill_attention(q, k, v, q_pos, q_pos, window, use_kernels)
-        kc, vc = cache_kv
-        S = kc.shape[1]
-        if window > 0 and S == window:
-            # Ring buffer: keep only the last S keys (slots are unique).
-            keep = min(T, S)
-            slot = q_pos[-keep:] % S
-            kc[:, slot] = k[:, -keep:]
-            vc[:, slot] = v[:, -keep:]
-        else:
-            _write(kc, vc, k, v, pos0)
-        new_cache = (kc, vc)
+        return out.reshape(B, T, H * hd) @ p["wo"], (k, v)
+    kc, vc = cache_kv
+    S = kc.shape[1]
+    if sharded:
+        kc, vc = _sharded_write(kc, vc, k, v, pos0, window)
     else:
-        # Decode: append one position, attend against the cache.
-        kc, vc = cache_kv
-        S = kc.shape[1]
-        if window > 0 and S == window:
-            slot = pos0 % S
-            kc[:, slot] = k[:, 0]
-            vc[:, slot] = v[:, 0]
-        else:
-            _write(kc, vc, k, v, pos0)
+        _write(kc, vc, k, v, pos0, window)
+    if T == 1:
+        # Decode: one position against the cache.
         if k_pos is None:
             k_pos = decode_key_positions(S, pos0, window, x.device)
-        out = _decode_attention(q, kc, vc, pos0, k_pos, window, use_kernels)
-        new_cache = (kc, vc)
+        out = (_sharded_decode if sharded else _decode_attention)(
+            q, kc, vc, pos0, k_pos, window, use_kernels)
     out = out.reshape(B, T, H * hd) @ p["wo"]
-    return out, new_cache
+    return out, (kc, vc)
 
 
-def _write(kc, vc, k, v, pos0: int) -> None:
-    """Write k, v [B,T,KV,hd] into the caches at positions pos0.. in place."""
-    T, S = k.shape[1], kc.shape[1]
+def _write(kc, vc, k, v, pos0: int, window: int, s0: int = 0,
+           S: int | None = None):
+    """Write k, v [B,T,KV,hd] (positions pos0..) into the caches in place
+    and return them. A ring of `window` slots keeps the last S keys (slots
+    are unique); otherwise a write past the cache's end raises. The caches
+    may be one rank's shard of S slots: global slots s0 .. s0 + their
+    length."""
+    T, S_l = k.shape[1], kc.shape[1]
+    S = S_l if S is None else S
+    if window > 0 and S == window:
+        keep = min(T, S)
+        slot = (pos0 + torch.arange(T - keep, T, device=k.device)) % S
+        k, v = k[:, T - keep:], v[:, T - keep:]
+        if S_l < S:
+            mine = (slot >= s0) & (slot < s0 + S_l)
+            slot, k, v = slot[mine], k[:, mine], v[:, mine]
+        kc[:, slot - s0] = k
+        vc[:, slot - s0] = v
+        return kc, vc
     if pos0 + T > S:
         raise ValueError(f"cache of {S} positions cannot take positions "
                          f"{pos0}..{pos0 + T - 1}")
-    kc[:, pos0:pos0 + T] = k
-    vc[:, pos0:pos0 + T] = v
+    lo, hi = max(pos0, s0), min(pos0 + T, s0 + S_l)
+    if lo < hi:
+        kc[:, lo - s0:hi - s0] = k[:, lo - pos0:hi - pos0]
+        vc[:, lo - s0:hi - s0] = v[:, lo - pos0:hi - pos0]
+    return kc, vc
+
+
+def _shard_start(t, dim: int) -> int:
+    """The first index along `dim` of this rank's shard of DTensor t (even
+    shards, mesh dims major to minor)."""
+    start, size = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            size //= t.device_mesh.size(i)
+            start += t.device_mesh.get_local_rank(i) * size
+    return start
+
+
+def _sharded_write(kc, vc, k, v, pos0: int, window: int):
+    """`_write` into DTensor caches, each rank into its own shard, in
+    place: k, v arrive replicated along the cache's sharded slots and
+    sharded as the cache on every other dim."""
+    from torch.distributed.tensor import Replicate
+    pl = kc.placements
+    kvp = tuple(Replicate() if p.is_shard(1) else p for p in pl)
+    fn = functools.partial(_write, pos0=pos0, window=window,
+                           s0=_shard_start(kc, 1), S=kc.shape[1])
+    return _local_map(fn, (pl, pl), (pl, pl, kvp, kvp), kc.device_mesh)(
+        kc, vc, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +421,38 @@ def _chunk_nll(head: torch.Tensor, xc: torch.Tensor,
     then f32, as the reference."""
     logits = (xc @ head).float()                        # [B, c, V]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    gold = (_sharded_gold if is_dtensor(logits) else _gold)(logits, tc)
     return torch.sum(logz - gold)
+
+
+def _gold(logits: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+    """logits [B, c, V] at the targets tc [B, c]."""
+    return torch.gather(logits, -1, tc[..., None].long())[..., 0]
+
+
+def _shard_gold(logits: torch.Tensor, tc: torch.Tensor,
+                v0: int) -> torch.Tensor:
+    """`_gold` on one rank's vocabulary shard, entries v0 on: a target
+    outside it reads 0."""
+    t = tc.long() - v0
+    V = logits.shape[-1]
+    g = _gold(logits, t.clamp(0, V - 1))
+    return torch.where((t >= 0) & (t < V), g, 0.0)
+
+
+def _sharded_gold(logits, tc):
+    """`_gold` on DTensor logits, rank by rank: each reads the targets in
+    its vocabulary shard, and the sum over the ranks that split V (a
+    Partial placement) is the gold logit. Picking entries is linear, so
+    logits that are partial sums give partial sums."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh, lp = logits.device_mesh, logits.placements
+    tp = tuple(Replicate() if p.is_shard(2) or p.is_partial() else p
+               for p in lp)
+    op = tuple(Partial() if p.is_shard(2) else p for p in lp)
+    fn = functools.partial(_shard_gold, v0=_shard_start(logits, 2))
+    return _local_map(fn, (op,), (lp, tp), mesh)(
+        logits, replicated_like(tc, logits))
 
 
 def chunked_ce_loss(head: torch.Tensor, xs: torch.Tensor,
@@ -270,7 +466,8 @@ def chunked_ce_loss(head: torch.Tensor, xs: torch.Tensor,
     chunk = _pick_chunk(S, chunk)
     grad = torch.is_grad_enabled() and (xs.requires_grad
                                         or head.requires_grad)
-    total = torch.zeros((), dtype=torch.float32, device=xs.device)
+    total = replicated_like(
+        torch.zeros((), dtype=torch.float32, device=xs.device), xs)
     for c0 in range(0, S, chunk):
         xc, tc = xs[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
         part = (checkpoint(_chunk_nll, head, xc, tc, use_reentrant=False)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import refuse_dtensor
 from ..kernels.ssm_scan.ops import ssm_scan
 from .config import ModelConfig
 
@@ -88,6 +89,7 @@ def mamba2_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: dict | None, use_kernels: bool = True):
     """x [B,T,d] -> (out [B,T,d], dict(ssm [B,nh,hp,N] f32, conv
     [B,W-1,di])). `cache` holds the previous call's states."""
+    refuse_dtensor("the Mamba2 token mixer", x)
     B, T, d = x.shape
     di, nh, hp = cfg.di, cfg.ssm_heads, cfg.ssm_head_dim
     z = F.silu(x @ p["wz"])                              # [B, T, di]

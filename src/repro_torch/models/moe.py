@@ -23,14 +23,18 @@ Nothing here reads a tensor back to the host: the capacity comes from the
 shapes, and drops are masks, so a decode step issues its launches without
 waiting for the device.
 
-The reference's sharding hints (`with_sharding_constraint` on the
-dispatch buffers) do nothing without a device mesh and are left out.
+The reference's sharding hint `cfg.moe_expert_shard_constraint`
+(`with_sharding_constraint` of the dispatch buffers to the `model` axis)
+does nothing without a device mesh, and here nothing at all: on DTensor
+activations `moe_apply` raises NotImplementedError until the MoE runs
+under a mesh (ROADMAP item 9c).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..device import refuse_dtensor
 from ..kernels.int8_grouped_matmul.ops import int8_grouped_matmul
 from ..kernels.int8_grouped_matmul.ref import int8_grouped_matmul_ref
 from .config import ModelConfig
@@ -163,6 +167,7 @@ def dispatch_slots(idx: torch.Tensor, C: int):
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               use_kernels: bool = True) -> torch.Tensor:
     """x [B, T, d] -> [B, T, d]."""
+    refuse_dtensor("the MoE channel mixer", x)
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * T

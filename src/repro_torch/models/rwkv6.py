@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import refuse_dtensor
 from ..kernels.rwkv6_wkv.ops import rwkv6_wkv
 from .config import ModelConfig
 
@@ -79,6 +80,7 @@ def rwkv6_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 cache: dict | None, use_kernels: bool = True):
     """x [B,T,d] -> (out [B,T,d], dict(state [B,H,hd,hd] f32, xprev [B,d]
     f32)). `cache` holds the previous call's state and last input."""
+    refuse_dtensor("the RWKV6 token mixer", x)
     B, T, d = x.shape
     H, hd = d // HEAD_DIM, HEAD_DIM
     xs = _shift(x, None if cache is None else cache["xprev"])

@@ -5,8 +5,8 @@ kwarg-wiring that every benchmark and example hand-rolled.  A scenario is
 three orthogonal pieces:
 
 * `FleetSpec`    — which hardware catalog serves (the paper's GPU tier
-  table; the reference's TPU catalog is not ported and raises) and which
-  (TP, PP) lattice is allowed;
+  table, or the TPU tier catalog from `core/bridge.py`) and which (TP, PP)
+  lattice is allowed;
 * `WorkloadSpec` — which query-type population (the paper's Azure-trace-
   calibrated six types, or a synthetic population of any size) and which
   demand process drives replays (flat / diurnal / bursty / random-walk);
@@ -59,7 +59,7 @@ class FleetSpec:
     planner then arbitrages.  ``carbon_price`` without ``regions`` prices
     every tier at the default grid intensity.
     """
-    catalog: str = "gpu"                    # "gpu" (paper); "tpu" raises
+    catalog: str = "gpu"                    # "gpu" (paper) | "tpu" (bridge)
     tp_degrees: tuple[int, ...] | None = None
     pp_depths: tuple[int, ...] | None = None
     spot_tiers: str | None = None           # None | "quantized" | "all"
@@ -70,10 +70,9 @@ class FleetSpec:
 
     def apply(self, inst: Instance) -> Instance:
         if self.catalog == "tpu":
-            raise NotImplementedError(
-                "the TPU tier catalog is not ported (ROADMAP item 9: the "
-                "port's bridge has no TPU tiers); use catalog='gpu'")
-        if self.catalog != "gpu":
+            from repro_torch.core.bridge import tpu_instance
+            inst = tpu_instance(inst)
+        elif self.catalog != "gpu":
             raise ValueError(f"unknown fleet catalog {self.catalog!r} "
                              f"(expected 'gpu' or 'tpu')")
         if self.tp_degrees is not None or self.pp_depths is not None:
@@ -247,9 +246,8 @@ SCENARIOS: dict[str, ScenarioSpec] = {
     # High-penalty + tight budget (S5): image/video unmet penalties x5.
     "high-penalty": ScenarioSpec(
         name="high-penalty", slo=SLOSpec(budget=72.0, phi_v_mult=5.0)),
-    # The paper's planner provisioning a TPU fleet (the reference's
-    # core/bridge.py tier catalog). Registered as in the reference; building
-    # it raises NotImplementedError until the port has TPU tiers.
+    # The paper's planner provisioning a TPU fleet (core/bridge.py tier
+    # catalog: v5e/v5p/v4 x bf16/int8, TP up to 16).
     "tpu-fleet": ScenarioSpec(
         name="tpu-fleet", fleet=FleetSpec(catalog="tpu")),
     # Beyond-paper fleet-scale population (the allocator's scaling size).

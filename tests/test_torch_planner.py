@@ -1,10 +1,14 @@
 """The port's planner facade against the reference's: `plan()` gives the
 reference's solutions bit for bit for every builtin solver, the result and
 option types round-trip through JSON, the registry behaves the same, every
-named scenario builds the reference's arrays (the TPU fleet raises: the port
-has no TPU tiers), both names of the batched allocator engine run the torch
-tier, and the `risk=` post-pass gives the reference's counts. Numpy on both sides, apart from the risk hook (torch on the CPU)."""
+named scenario builds the reference's arrays (the TPU fleet too, from the
+bridge's TPU tier catalog, and plans on it are the reference's), the
+planning CLI prints the reference CLI's JSON, both names of the batched
+allocator engine run the torch tier, and the `risk=` post-pass gives the
+reference's counts. Numpy on both sides, apart from the risk hook (torch on
+the CPU)."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -218,8 +222,7 @@ def test_plan_request_validation():
 # Scenario specs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(n for n in ref_planner.SCENARIOS
-                                        if n != "tpu-fleet"))
+@pytest.mark.parametrize("name", sorted(ref_planner.SCENARIOS))
 def test_named_scenarios_build_reference_arrays(name):
     got = scenario(name, n_windows=16).build()
     want = ref_planner.scenario(name, n_windows=16).build()
@@ -237,12 +240,120 @@ def test_named_scenarios_build_reference_arrays(name):
     assert sched.change_points(got.K) == ref_sched.change_points(want.K)
 
 
-def test_tpu_fleet_is_registered_and_raises():
+def _assert_instances_equal(got, want, label):
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            assert np.array_equal(a, b), f"{label}: {f.name}"
+        elif isinstance(b, (int, float, str, list, tuple)) or b is None:
+            assert a == b, f"{label}: {f.name}"
+
+
+def _dryrun_rows() -> list[dict]:
+    """A synthetic dry-run JSON in the fields `launch/dryrun.py` writes:
+    rows the calibration reads, and rows it must skip (failed, not the
+    decode shape, multi-pod, an arch it does not map)."""
+    rows = []
+    for i, arch in enumerate(["qwen2-0.5b", "qwen2-1.5b", "rwkv6-7b",
+                              "deepseek-7b", "internvl2-26b", "qwen2-72b"]):
+        rows.append(dict(arch=arch, shape="decode_32k", multi_pod=False,
+                         status="ok", n_devices=256,
+                         hlo_bytes_per_device=3.1e9 * (i + 1) ** 1.7,
+                         params_active=0.5e9 * (i + 1) ** 2))
+    rows += [
+        dict(arch="qwen2-0.5b", shape="decode_32k", multi_pod=False,
+             status="error", n_devices=256, hlo_bytes_per_device=1.0,
+             params_active=1.0),
+        dict(arch="qwen2-1.5b", shape="prefill_32k", multi_pod=False,
+             status="ok", n_devices=256, hlo_bytes_per_device=9e12,
+             params_active=1.5e9),
+        dict(arch="deepseek-7b", shape="decode_32k", multi_pod=True,
+             status="ok", n_devices=512, hlo_bytes_per_device=9e12,
+             params_active=7e9),
+        dict(arch="kimi-k2-1t-a32b", shape="decode_32k", multi_pod=False,
+             status="ok", n_devices=256, hlo_bytes_per_device=5e12,
+             params_active=3.2e10),
+        # a tiny row: the ratio clips at its floor of 0.25
+        dict(arch="qwen2-72b", shape="decode_32k", multi_pod=False,
+             status="ok", n_devices=256, hlo_bytes_per_device=1.0,
+             params_active=7.2e10)]
+    return rows
+
+
+def test_tpu_fleet_is_registered_and_builds(tmp_path):
+    """The TPU tier catalog (`core/bridge.py`): the registry is the
+    reference's, an unknown catalog raises, `tpu_instance` and
+    `calibrate_from_dryrun` give the reference's instances."""
+    from repro.core import bridge as ref_bridge
+    from repro_torch.core import bridge
     assert sorted(planner.SCENARIOS) == sorted(ref_planner.SCENARIOS)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        scenario("tpu-fleet").build()
     with pytest.raises(ValueError, match="catalog"):
         ScenarioSpec(fleet=FleetSpec(catalog="asic")).build()
+    assert bridge.TPU_TIERS == ref_bridge.TPU_TIERS
+    for name, make in INSTANCES.items():
+        _assert_instances_equal(bridge.tpu_instance(make(core)),
+                                ref_bridge.tpu_instance(make(ref_core)),
+                                f"tpu/{name}")
+    path = tmp_path / "dryrun.json"
+    path.write_text(json.dumps(_dryrun_rows()))
+    arch_to_model = {"qwen2-0.5b": 0, "qwen2-1.5b": 1, "rwkv6-7b": 2,
+                     "deepseek-7b": 3, "internvl2-26b": 4, "qwen2-72b": 5}
+    got = bridge.calibrate_from_dryrun(
+        bridge.tpu_instance(core.default_instance()), str(path),
+        arch_to_model)
+    want = ref_bridge.calibrate_from_dryrun(
+        ref_bridge.tpu_instance(ref_core.default_instance()), str(path),
+        arch_to_model)
+    assert not np.array_equal(want.B, ref_core.default_instance().B)
+    _assert_instances_equal(got, want, "calibrated")
+    empty = tmp_path / "empty.json"
+    empty.write_text("[]")
+    inst = core.default_instance()
+    assert bridge.calibrate_from_dryrun(inst, str(empty), arch_to_model) \
+        is inst
+    pair = bridge.PairDeployment("m", "v5e-bf16", 4, 2, 8, {})
+    assert (bridge.DeploymentSpec([pair]).mesh_shape_for(pair)
+            == ref_bridge.DeploymentSpec([]).mesh_shape_for(
+                ref_bridge.PairDeployment("m", "v5e-bf16", 4, 2, 8, {})))
+
+
+@pytest.mark.parametrize("solver", ["gh", "agh"])
+def test_tpu_fleet_plans_equal_reference(solver):
+    from repro_torch.core.bridge import TPU_TIERS
+    got = plan(solver, scenario="tpu-fleet")
+    want = ref_planner.plan(solver, scenario="tpu-fleet")
+    _assert_bitwise_equal(got.solution, want.solution, f"tpu-fleet/{solver}")
+    assert got.objective == want.objective
+    assert got.cost_breakdown == want.cost_breakdown
+    inst = scenario("tpu-fleet").build()
+    assert [t[0] for t in TPU_TIERS] == inst.tier_names
+    assert inst.tp_degrees == [1, 2, 4, 8, 16]
+
+
+@pytest.mark.parametrize("tiers", ["gpu", "tpu"])
+@pytest.mark.parametrize("method", ["agh", "gh", "hf", "lpr", "dvr"])
+def test_plan_cli_json_equals_reference(tiers, method, tmp_path, capsys):
+    """`python -m repro_torch.launch.plan` prints (and writes to --out) the
+    reference CLI's JSON, apart from the solver's wall time."""
+    from repro.launch import plan as ref_cli
+    from repro_torch.launch import plan as cli
+    dry = tmp_path / "dryrun.json"
+    dry.write_text(json.dumps(_dryrun_rows()))
+    outs = []
+    for mod, out in ((cli, tmp_path / "port.json"),
+                     (ref_cli, tmp_path / "ref.json")):
+        argv = ["--method", method, "--tiers", tiers, "--budget", "90",
+                "--seed", "1", "--out", str(out)]
+        if tiers == "tpu":
+            argv += ["--calibrate", str(dry)]
+        assert mod.main(argv) == 0
+        printed = json.loads(capsys.readouterr().out)
+        written = json.loads(out.read_text())
+        assert printed == written
+        written.pop("runtime_s")
+        outs.append(written)
+    assert outs[0] == outs[1]
+    assert len(outs[0]["unmet"]) == core.default_instance().I
 
 
 def test_synthetic_scenario_and_plan_by_name():
