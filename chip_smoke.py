@@ -143,17 +143,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      difference printed), flash and decode launched as often as there,
      both walls printed; the same with `seq_shard_attention`; and
      `pipelined_forward` over the 24 layers at one stage, 4 microbatches
-     of B 2 x T 256, bit for bit the sequential run.
+     of B 2 x T 256, bit for bit the sequential run;
+ 14. the MoE, RWKV6 and Mamba2 mixers under a mesh, on the same
+     one-device NCCL mesh: rwkv6-7b at 4 layers, zamba2-7b at 7, kimi-k2
+     at 1 and kimi-k2 W8A8 at 2 (full width, bf16) prefill the served
+     batch's shape and decode 32 steps on `distribute_params` trees that
+     share the unsharded weights' storage, against the unsharded kernel
+     path under phase 5's bf16 criteria (f32 truth for the recurrent two),
+     every kernel launched as often as there and the N-major int8
+     kernel never; each model's peak memory; one bf16 training step of
+     rwkv6-7b and zamba2-7b at those depths (B 2 x T 512) on the mesh,
+     every gradient leaf under phase 12's bf16 criterion, the scans and
+     their backwards launched as often as unsharded; meanwhile, in two
+     subprocesses on fake process groups (no card, started with phase 10,
+     which with phases 11-14 keeps the card busy; each on a core of its own
+     that this process keeps off meanwhile), `launch.dryrun` of
+     qwen2-72b train_4k on 256 ranks and kimi-k2 decode_32k on 512, both
+     `status: ok`, their rows and roofline lines printed.
 
-Phases 8-13 print their numbers as JSON lines {"risk": ...},
+Phases 8-14 print their numbers as JSON lines {"risk": ...},
 {"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...},
-{"training": ...}, {"training_recurrent": ...} and
-{"distribution": ...}. The line before the last is the kernel table as
+{"training": ...}, {"training_recurrent": ...}, {"distribution": ...}
+and {"mixers": ...}. The line before the last is the kernel table as
 JSON; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device the run fails. To run phase 9, 10, 11, 12 or 13 alone on a card:
-python -c "import chip_smoke as cs; cs.plan_and_replan()" (or
+device the run fails. To run phase 9, 10, 11, 12, 13 or 14 alone on a
+card: python -c "import chip_smoke as cs; cs.plan_and_replan()" (or
 cs.moe_and_io(), cs.train_and_check(), cs.train_recurrent(),
-cs.shard_and_pipeline()).
+cs.shard_and_pipeline(), cs.mixers_under_a_mesh()).
 """
 from __future__ import annotations
 
@@ -3268,6 +3284,332 @@ def shard_and_pipeline(dev=None, seed: int = 0) -> dict:
     return out
 
 
+# Phase 14: the MoE, RWKV6 and Mamba2 mixers on a one-device mesh, then the
+# dry-run on fake process groups. The served models: (label, arch, config
+# fields replaced, kernels the path must launch, f32 logits check too), at
+# phase 5's and phase 10's depths. kimi-k2's f32 weights do not fit: bf16
+# only, as in phase 10.
+MIXER_MODELS = (
+    ("rwkv6-7b (4 layers)", "rwkv6-7b", dict(n_layers=4), ("rwkv6_wkv",),
+     True),
+    ("zamba2-7b (7 layers)", "zamba2-7b", dict(n_layers=7),
+     ("ssm_scan", "flash_attention", "decode_attention"), True),
+    ("kimi-k2 (1 layer)", "kimi-k2-1t-a32b", dict(n_layers=1),
+     ("flash_attention", "decode_attention"), False),
+    ("kimi-k2 W8A8 (2 layers)", "kimi-k2-1t-a32b",
+     dict(n_layers=2, moe_w8a8=True),
+     ("flash_attention", "decode_attention", INT8_WGMMA), False),
+)
+# 14.3: one training step at the same depths, batch B x T, on the mesh.
+MIXER_TRAIN = {"rwkv6-7b": 4, "zamba2-7b": 7}
+MIXER_TRAIN_B, MIXER_TRAIN_T = 2, 512
+# 14.4: the dry-runs (arch, shape, multi-pod), each in a subprocess of its
+# own with a fake process group of 256 or 512 ranks, started when the phase
+# starts and read at its end.
+DRYRUNS = (("qwen2-72b", "train_4k", False),
+           ("kimi-k2-1t-a32b", "decode_32k", True))
+INT8_NMAJOR = "int8_grouped_matmul_nmajor"
+
+
+def mixer_path(label: str) -> str:
+    return f"{label} sharded (one-device mesh)"
+
+
+def counted(fn):
+    """fn() with every kernel's launch count set to 0 just before and read
+    just after; the int8 GEMM's split by kernel (K-major wgmma, N-major)."""
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    int8_grouped_matmul.wgmma_launches = 0
+    out = fn()
+    n = {k: op.launches for k, op in ops.items() if op.launches}
+    w = int8_grouped_matmul.wgmma_launches
+    n.pop("int8_grouped_matmul", None)
+    if w:
+        n[INT8_WGMMA] = w
+    if ops["int8_grouped_matmul"].launches - w:
+        n[INT8_NMAJOR] = ops["int8_grouped_matmul"].launches - w
+    return out, n
+
+
+def _pin_threads(cores: set) -> None:
+    """Every thread of this process onto `cores` (threads made later
+    inherit the mask of the thread that makes them)."""
+    import os
+    for tid in os.listdir("/proc/self/task"):
+        with contextlib.suppress(ProcessLookupError):
+            os.sched_setaffinity(int(tid), cores)
+
+
+def start_dryruns() -> list:
+    """Phase 14.4's subprocesses, on the host only (no card); any still
+    running when this process exits, on a failed check too, is killed.
+    Each trace runs on a core of its own, one thread, at the lowest
+    priority, and this process keeps off those cores until they end
+    (`stop_dryruns`): the walls of phases 10-14, taken on the host's
+    clock meanwhile, never share a core with a trace."""
+    import atexit
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < len(DRYRUNS) + 2:
+        fail(f"the dry-runs need {len(DRYRUNS)} cores of their own beside "
+             f"two for this process; it may run on {len(cores)}")
+    theirs, mine = cores[-len(DRYRUNS):], set(cores[:-len(DRYRUNS)])
+    procs = []
+    for (arch, shape, multi), core in zip(DRYRUNS, theirs, strict=True):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multi-pod"] if multi else [])
+
+        def pin(core=core):
+            os.nice(19)
+            os.sched_setaffinity(0, {core})
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True,
+                                      env=env, cwd=ROOT, preexec_fn=pin))
+    _DRYRUN_HOST.update(cores=set(cores), threads=torch.get_num_threads())
+    _pin_threads(mine)
+    torch.set_num_threads(len(mine))
+    print(f"  dry-runs on cores {theirs}, this process on {sorted(mine)}",
+          flush=True)
+    atexit.register(stop_dryruns, procs)
+    return procs
+
+
+# the cores and intra-op threads this process had before the dry-runs
+_DRYRUN_HOST: dict = {}
+
+
+def stop_dryruns(procs) -> None:
+    """Kill the dry-runs still running; this process gets its cores
+    back."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if _DRYRUN_HOST:
+        _pin_threads(_DRYRUN_HOST["cores"])
+        torch.set_num_threads(_DRYRUN_HOST["threads"])
+        _DRYRUN_HOST.clear()
+
+
+def finish_dryruns(procs, t0) -> list:
+    """Phase 14.4: wait for the dry-runs, print each row's counts and its
+    roofline line (H100 data-sheet constants: counts from a meta trace,
+    not times); fails unless every row is `status: ok`."""
+    from repro_torch.analysis import roofline
+    rows = []
+    for (arch, shape, multi), proc in zip(DRYRUNS, procs, strict=True):
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode:
+            fail(f"dry-run {arch} {shape} exited {proc.returncode}: "
+                 f"{err[-2000:]}")
+        r = json.loads(out)
+        if r.get("status") != "ok":
+            fail(f"dry-run {arch} {shape}: status {r.get('status')}")
+        a = roofline.analyze_row(r)
+        print(f"  dry-run {arch} {shape} {'2x16x16' if multi else '16x16'}:"
+              f" {r['n_devices']} fake ranks, status {r['status']}, trace "
+              f"{r['lower_s']} s; per device {r['hlo_flops_per_device']:.4e}"
+              f" flops, {r['hlo_bytes_per_device']:.4e} bytes (estimate), "
+              f"{r['collective_bytes_per_device']:.4e} collective bytes "
+              f"{r['collectives']}; global flops "
+              f"{r['raw_cost_analysis_flops']:.4e}; memory {r['memory']}",
+              flush=True)
+        print("  " + roofline.markdown_table([a]).splitlines()[-1],
+              flush=True)
+        rows.append(dict(row=r, roofline={k: v for k, v in a.items()
+                                          if k != "collectives"}))
+    print(f"  the dry-runs ended {time.perf_counter() - t0:.1f}s after "
+          f"they started", flush=True)
+    return rows
+
+
+def serve_mixer(mesh, dev, seed, label, arch, replace, kernels, f32) -> dict:
+    """Phases 14.1-14.2 for one model: the served batch's prefill and 32
+    decode steps on the unsharded kernel path, then on the same weights
+    made DTensors by `distribute_params` (sharing their storage) with a
+    DTensor cache; logits under phase 5's bf16 criteria (f32 truth where
+    it fits), launches equal, no N-major int8 launch; peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+    from repro_torch.parallel.sharding import distribute_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), **replace)
+    params = decoder.init_params(torch.Generator(device=dev).manual_seed(seed),
+                                 cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    toks = torch.randint(1, cfg.vocab_size, (SHARD_B, SHARD_T),
+                         generator=gen, device=dev)
+    dec = torch.randint(1, cfg.vocab_size, (SHARD_B, SHARD_STEPS),
+                        generator=gen, device=dev)
+    sp = distribute_params(params, mesh)
+    shared = all(a.to_local().data_ptr() == b.data_ptr()
+                 for a, b in zip(_leaves(sp), _leaves(params), strict=True))
+    if not shared:
+        fail(f"{label}: the DTensor tree copied the weights")
+    runs = {}
+    for name, ps in (("unsharded", params), ("sharded", sp)):
+        decode_run(ps, cfg, toks[:, :64], dec[:, :2], dev)     # warm-up
+        (got, wall, _), n = counted(lambda ps=ps: decode_run(ps, cfg, toks,
+                                                             dec, dev))
+        runs[name] = (got, wall, n)
+    (want, wall0, n0), (got, wall, n) = runs["unsharded"], runs["sharded"]
+    err = (got - want).abs().max().item()
+    rel = row_rel(got, want)
+    ok, rel_f32, rel0 = rel <= E2E_BF16_REL, None, None
+    if f32:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        truth = decode_run(_tree_map(lambda x: x.float(), params), cfg32,
+                           toks, dec, dev)[0]
+        rel0, rel_f32 = row_rel(want, truth), row_rel(got, truth)
+        ok = ok and rel_f32 <= 2 * rel0 + E2E_TOL
+        del truth
+    same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {label}: sharded {wall:.3f} s, unsharded {wall0:.3f} s "
+          f"({wall / wall0:.2f}x); launches sharded {n}, unsharded {n0}; "
+          f"logits vs the unsharded kernel path: max abs diff {err:.3e}, "
+          f"max_row_rel_err {rel:.3e} (tol {E2E_BF16_REL:g})"
+          + ("" if rel_f32 is None else
+             f", vs f32 {rel_f32:.3e} (tol 2x {rel0:.3e} + {E2E_TOL:g})")
+          + f"; same greedy token in {same:.3f} of rows; weights shared "
+          f"with the unsharded tree: {shared}; peak {peak:.2f} GiB "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{label}: sharded logits disagree with the unsharded path")
+    for k in kernels:
+        if not n.get(k) or n.get(k) != n0.get(k):
+            fail(f"{label}: {k} launched {n.get(k, 0)} times sharded, "
+                 f"{n0.get(k, 0)} unsharded")
+    if n != n0 or n.get(INT8_NMAJOR) or n0.get(INT8_NMAJOR):
+        fail(f"{label}: launches differ or reach the N-major int8 kernel: "
+             f"{n} vs {n0}")
+    del params, sp, runs, got, want
+    torch.cuda.empty_cache()
+    return dict(path=mixer_path(label), wall_s=wall, unsharded_wall_s=wall0,
+                launches=n, unsharded_launches=n0, max_abs_diff=err,
+                max_row_rel_err=rel, f32_row_rel=rel_f32,
+                unsharded_f32_row_rel=rel0, same_greedy=same,
+                weights_shared=shared, peak_gib=peak)
+
+
+def train_mixer(mesh, dev, seed, arch, n_layers) -> dict:
+    """Phase 14.3: one bf16 training step of `arch` at `n_layers` on the
+    mesh and unsharded, kernels both: every gradient leaf under phase 12's
+    bf16 criterion (rel L2 to the f32 gradient of the same bf16-rounded
+    weights, the plain path's, at most 2x the plain bf16 path's +
+    E2E_TOL), the sharded-vs-unsharded gap printed, the scans and their
+    backwards launched as often."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+    from repro_torch.parallel.sharding import distribute_params
+    from repro_torch.training.data import DataConfig, PackedStream
+    from repro_torch.training.train_loop import batch_on
+    torch.cuda.empty_cache()
+    cfg16 = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    params = decoder.init_params(torch.Generator(device=dev).manual_seed(seed),
+                                 cfg16)
+    batch = batch_on(PackedStream(DataConfig(
+        vocab_size=cfg16.vocab_size, seq_len=MIXER_TRAIN_T,
+        batch_size=MIXER_TRAIN_B, seed=0)).batch(0), dev)
+    names = [n for n, _ in sorted(_named(params))]
+    _sync(dev)
+    t0 = time.perf_counter()
+    (lk, gk), n0 = counted(lambda: _grads(params, cfg16, batch, True))
+    _sync(dev)
+    wall0 = time.perf_counter() - t0
+    sp = distribute_params(params, mesh)
+    t0 = time.perf_counter()
+    (ls, gs), n = counted(lambda: _grads(sp, cfg16, batch, True))
+    gs = [_whole(g) for g in gs]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    lp, gp = _grads(params, cfg16, batch, False)
+    lt, gt = _grads(_tree_map(lambda x: x.float(), params), cfg32, batch,
+                    False)
+    bad, worst, gap = [], (0.0, ""), (0.0, "")
+    for name, a, k, b, t in zip(names, gs, gk, gp, gt, strict=True):
+        rs, rp = _rel_l2(a, t), _rel_l2(b, t)
+        worst = max(worst, (rs / max(2 * rp + E2E_TOL, 1e-30), name))
+        gap = max(gap, (_rel_l2(a, k), name))
+        if rs > 2 * rp + E2E_TOL:
+            bad.append(name)
+    want = (("ssm_scan", "ssm_scan_bwd") if arch == "zamba2-7b"
+            else ("rwkv6_wkv", "rwkv6_wkv_bwd"))
+    print(f"  {arch} ({n_layers} layers) bf16 train step B={MIXER_TRAIN_B} "
+          f"T={MIXER_TRAIN_T}: loss sharded {ls.item():.5f}, unsharded "
+          f"{lk.item():.5f}, plain {lp.item():.5f}, f32 {lt.item():.5f}; "
+          f"worst leaf {worst[1]} at {worst[0]:.3f} of its tol (rel L2 to "
+          f"f32 <= 2x plain + {E2E_TOL:g}); sharded vs unsharded largest "
+          f"rel L2 {gap[0]:.3e} ({gap[1]}); launches sharded {n}, unsharded "
+          f"{n0}; {wall:.3f} s sharded, {wall0:.3f} s unsharded "
+          f"{'ok' if not bad else 'MISMATCH ' + str(bad)}", flush=True)
+    if bad:
+        fail(f"{arch}: sharded train-step gradients too far from f32: {bad}")
+    if n != n0 or not all(n.get(k) for k in want):
+        fail(f"{arch}: the sharded train step launched {n}, unsharded {n0}")
+    del params, sp, gs, gk, gp, gt
+    torch.cuda.empty_cache()
+    return dict(path=f"{arch} ({n_layers} layers) sharded train step "
+                     f"(one-device mesh)",
+                launches=n, unsharded_launches=n0, loss=ls.item(),
+                unsharded_loss=lk.item(), worst_leaf_of_tol=worst[0],
+                worst_leaf=worst[1], sharded_vs_unsharded_rel_l2=gap[0],
+                wall_s=wall, unsharded_wall_s=wall0)
+
+
+def mixers_under_a_mesh(dev=None, seed: int = 0, dryruns=None) -> dict:
+    """Phase 14: the MoE, RWKV6 and Mamba2 mixers on DTensors on a
+    one-process NCCL group and a one-device mesh (serving, memory,
+    training), with the dry-runs in subprocesses meanwhile: `dryruns`
+    (procs, their start time) when the caller started them earlier, else
+    started here. Returns the phase's numbers; fails on any check."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = dev or torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    if dryruns is None:
+        phase("14.4 the dry-runs start (subprocesses, fake process groups)")
+        dryruns = start_dryruns(), t0
+    procs, started = dryruns
+    out = dict(serving={}, training={})
+    try:
+        torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_host_mesh(1)
+            for label, arch, replace, kernels, f32 in MIXER_MODELS:
+                phase(f"14.1-14.2 {mixer_path(label)}")
+                out["serving"][label] = serve_mixer(
+                    mesh, dev, seed, label, arch, replace, kernels, f32)
+            for arch, n_layers in MIXER_TRAIN.items():
+                phase(f"14.3 train {arch} on the mesh")
+                out["training"][arch] = train_mixer(mesh, dev, seed, arch,
+                                                    n_layers)
+        finally:
+            dist.destroy_process_group()
+        phase("14.4 the dry-runs")
+        out["dryrun"] = finish_dryruns(procs, started)
+    finally:
+        stop_dryruns(procs)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 14 took {out['wall_s']:.1f}s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3346,6 +3688,10 @@ def main(argv=None) -> int:
     print(json.dumps({"allocator": planning["allocator"]}))
     print(json.dumps({"closed_loop": planning["closed_loop"]}))
 
+    # Phase 14's dry-runs need only the host: they run beside phases 10-14
+    # (which keep the card busy), each in a process on a core of its own.
+    phase("14.4 the dry-runs start (subprocesses, fake process groups)")
+    dryruns = start_dryruns(), time.perf_counter()
     moe_io = moe_and_io(dev, args.seed)
     rows = merge_moe_io_rows(rows, moe_io)
     print(f"  total {time.perf_counter() - t_start:.1f}s")
@@ -3390,6 +3736,18 @@ def main(argv=None) -> int:
                 r["launches"] += n
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"distribution": distribution}))
+
+    mixers = mixers_under_a_mesh(dev, args.seed, dryruns)
+    for r in rows:
+        name = INT8_WGMMA if r["name"] == "int8_grouped_matmul" else r["name"]
+        for run in (*mixers["serving"].values(),
+                    *mixers["training"].values()):
+            n = run["launches"].get(name, 0)
+            if n:
+                r["launches_by_path"][run["path"]] = n
+                r["launches"] += n
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"mixers": mixers}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -20,12 +20,3 @@ def is_dtensor(t) -> bool:
         return False
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
-
-
-def refuse_dtensor(what: str, *tensors) -> None:
-    """Raise NotImplementedError when one of `tensors` is a DTensor: `what`
-    has no sharded path yet."""
-    if any(is_dtensor(t) for t in tensors):
-        raise NotImplementedError(
-            f"{what} does not run on DTensors yet (ROADMAP item 9c: the "
-            f"MoE, RWKV6 and Mamba2 mixers under a mesh)")

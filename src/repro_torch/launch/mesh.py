@@ -23,9 +23,10 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The production mesh on CUDA; raises unless the world is 256 ranks
-    (512 with `multi_pod`), and without CUDA."""
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """The production mesh; raises unless the world is 256 ranks (512 with
+    `multi_pod`). On CUDA unless the caller passes "cpu" (the dry-run's
+    fake process group); raises without CUDA."""
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
@@ -33,7 +34,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     if n != want:
         raise ValueError(f"the production mesh {shape} needs a world of "
                          f"{want} ranks, got {n}")
-    return init_device_mesh(resolve_device("cuda").type, shape,
+    return init_device_mesh(resolve_device(device).type, shape,
                             mesh_dim_names=axes)
 
 
@@ -49,3 +50,11 @@ def make_host_mesh(model: int | None = None, device: str = "cuda"):
                          f"world of {n} ranks")
     return init_device_mesh(resolve_device(device).type, (n // model, model),
                             mesh_dim_names=("data", "model"))
+
+
+# H100 SXM5 hardware constants used by the roofline analysis (per GPU),
+# under the reference's names. Data-sheet figures (NVIDIA H100 Tensor Core
+# GPU data sheet, SXM5 column), not measurements of any card.
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 tensor core
+HBM_BW = 3.35e12                  # B/s, HBM3
+ICI_BW = 900e9                    # B/s, NVLink 4, both directions together

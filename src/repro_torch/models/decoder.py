@@ -15,6 +15,7 @@ cache, recurrent states) is updated in place.
 
 Public entry points:
     init_params(gen, cfg)
+    param_tree(cfg, normal, full)                    # the tree, any leaves
     init_cache(cfg, B, max_len, device)
     prefill(params, cfg, tokens[, prefix], max_len)  # -> (last_logits, cache)
     decode_step(params, cfg, cache, tokens, pos)     # -> (logits, cache)
@@ -25,16 +26,20 @@ super-block in the hybrid) is checkpointed, as the reference's
 `jax.checkpoint`, so its activations are recomputed in the backward.
 
 Sharded: the three entry points take parameters made DTensors by
-`parallel.sharding.distribute_params`. The dense GQA decoders with the
-dense MLP (qwen2-*, deepseek-7b) run so: `prefill` places its cache by
-`cache_specs`, the embeddings are placed by `batch_spec`, the tensors a
-step builds (tokens, positions) enter as replicated DTensors, and the
-attention kernels run on local shards (`layers.py`). The MoE, RWKV6 and
-Mamba2 mixers raise NotImplementedError on DTensors.
+`parallel.sharding.distribute_params`, for every family. `prefill`
+places its cache by `cache_specs`, the embeddings are placed by
+`batch_spec`, the tensors a step builds (tokens, positions) enter as
+replicated DTensors, each mixer's output enters the residual stream in
+that batch layout (`_batch_layout`), and the kernels run on local
+shards: the attention kernels (`layers.py`), the RWKV6 and Mamba2
+recurrences on each rank's heads (`rwkv6.py`, `mamba2.py`), the MoE's
+experts on each rank's experts (`moe.py`). Each layer's new recurrent
+state is placed as its cache before it is written there.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import is_dtensor
@@ -110,7 +115,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     numbers differ: another generator). A stacked weight is drawn one
     matrix at a time (one layer's, or one layer's expert's), so no f32
     copy of a whole stack is ever held."""
-    check_supported(cfg)
     dev, dt = gen.device, cfg.torch_dtype
 
     def normal(shape, fan_in):
@@ -124,6 +128,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     def full(value, shape):
         return torch.full(shape, value, dtype=torch.float32, device=dev)
 
+    return param_tree(cfg, normal, full)
+
+
+def param_tree(cfg: ModelConfig, normal, full) -> dict:
+    """The reference's parameter tree, its leaves made by `normal(shape,
+    fan_in)` (weights, in the config's dtype) and `full(value, shape)`
+    (the f32 constants); `init_params` draws them, `launch.specs` makes
+    them on the meta device."""
+    check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     params = dict(embed=normal((*nq, V, d), d), head=normal((*nq, d, V), d),
@@ -187,16 +200,39 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
 
 def _layer(tree: dict, i: int) -> dict:
     """Layer i's parameters (or cache): views into the stacked tensors."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+    return {k: _layer(v, i) if isinstance(v, dict) else _stack(v)[i]
             for k, v in tree.items()}
+
+
+def _stack(t: torch.Tensor) -> torch.Tensor:
+    """A stacked tensor whose layer dim may be indexed: a DTensor split on
+    it (the rules put "model" there on a MoE's shared expert when the
+    layer count divides it, as the reference's do) is gathered on it."""
+    if not (is_dtensor(t) and any(p.is_shard(0) for p in t.placements)):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(0) else p
+                                          for p in t.placements])
+
+
+def _gather_stacks(params: dict) -> dict:
+    """The parameters with the leaves of their layer stacks ("layers" and
+    the hybrid's "tail") gathered on the layer dim by `_stack`: once per
+    step, where `_layer` alone would gather a split stack once per layer."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return t if t is None else _stack(t)
+    return {k: walk(v) if k in ("layers", "tail") else v
+            for k, v in params.items()}
 
 
 def _channel_mix(lp: dict, cfg: ModelConfig, x: torch.Tensor,
                  use_kernels: bool) -> torch.Tensor:
     h = rms_norm(x, lp["ln2"])
     if cfg.n_experts:
-        return x + moe_apply(lp["moe"], cfg, h, use_kernels)
-    return x + mlp_apply(lp["mlp"], h)
+        return x + _batch_layout(moe_apply(lp["moe"], cfg, h, use_kernels))
+    return x + _batch_layout(mlp_apply(lp["mlp"], h))
 
 
 def _layer_body(lp: dict, cfg: ModelConfig, x: torch.Tensor, cache_l,
@@ -215,8 +251,11 @@ def _layer_body(lp: dict, cfg: ModelConfig, x: torch.Tensor, cache_l,
         else:
             out, new = rwkv6_apply(lp["rwkv"], cfg, h, cache_l, use_kernels)
         for name, t in new.items():
-            cache_l[name].copy_(t)
-    return _channel_mix(lp, cfg, x + out, use_kernels)
+            c = cache_l[name]
+            if is_dtensor(c) and tuple(t.placements) != tuple(c.placements):
+                t = t.redistribute(c.device_mesh, c.placements)
+            c.copy_(t)
+    return _channel_mix(lp, cfg, x + _batch_layout(out), use_kernels)
 
 
 def _run_hybrid(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -237,7 +276,7 @@ def _run_hybrid(params: dict, cfg: ModelConfig, x: torch.Tensor,
         out, _ = attention_apply(sa["attn"], cfg, rms_norm(x, sa["ln"]),
                                  (kc[g], vc[g]), pos0,
                                  use_kernels=use_kernels, k_pos=k_pos)
-        x = x + out
+        x = x + _batch_layout(out)
     for e in range(tail):
         x = _layer_body(_layer(params["tail"], e), cfg, x,
                         _layer(cache["tail"], e), pos0, use_kernels, None)
@@ -253,6 +292,7 @@ def _run_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
     k_pos = (decode_key_positions(attn[0].shape[2], pos0, cfg.sliding_window,
                                   x.device)
              if attn is not None and x.shape[1] == 1 else None)
+    params = _gather_stacks(params)
     if cfg.attn_every:
         return _run_hybrid(params, cfg, x, cache, pos0, use_kernels, k_pos)
     layers = cache["layers"]
@@ -273,7 +313,7 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     leaf: their backward is one `stack`, where indexing layer by layer
     would add each layer's gradient into a zero tensor the size of the
     whole stack."""
-    cols = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+    cols = {k: _unstack(v, n) if isinstance(v, dict) else _stack(v).unbind(0)
             for k, v in tree.items()}
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
@@ -289,7 +329,7 @@ def _train_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
         out, _ = mamba2_apply(lp["mamba"], cfg, h, None, use_kernels)
     else:
         out, _ = rwkv6_apply(lp["rwkv"], cfg, h, None, use_kernels)
-    return _channel_mix(lp, cfg, x + out, use_kernels)
+    return _channel_mix(lp, cfg, x + _batch_layout(out), use_kernels)
 
 
 def _train_super_block(group: list[dict], sa: dict, cfg: ModelConfig,
@@ -299,7 +339,7 @@ def _train_super_block(group: list[dict], sa: dict, cfg: ModelConfig,
         x = _train_layer(lp, cfg, x, use_kernels)
     out, _ = attention_apply(sa["attn"], cfg, rms_norm(x, sa["ln"]), None, 0,
                              use_kernels=use_kernels)
-    return x + out
+    return x + _batch_layout(out)
 
 
 def _remat(fn, *args):
@@ -344,6 +384,14 @@ def check_trainable(cfg: ModelConfig) -> None:
             f"trainable")
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens], as `F.embedding`: DTensor has its sharding rules
+    (vocab-parallel, and its backward) in every torch the port meets,
+    where the backward of indexing (`index_put`) fails to propagate over
+    DTensors on torch 2.11."""
+    return F.embedding(tokens, table)
+
+
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            prefix: torch.Tensor | None) -> torch.Tensor:
     """Token embeddings [B, T, d], after the projected prefix when one is
@@ -351,10 +399,10 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     dtype, in the reference's order ((0 + e0) + e1) + ..."""
     tokens = replicated_like(tokens, params["embed"])
     if cfg.n_codebooks:
-        x = sum(params["embed"][q][tokens[..., q]]
+        x = sum(_lookup(params["embed"][q], tokens[..., q])
                 for q in range(cfg.n_codebooks))
     else:
-        x = params["embed"][tokens]
+        x = _lookup(params["embed"], tokens)
     if prefix is not None:
         pre = (replicated_like(prefix, params["embed"]).to(x.dtype)
                @ params["prefix_proj"])
@@ -365,12 +413,31 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _batch_layout(x: torch.Tensor) -> torch.Tensor:
     """DTensor activations [B, ...] with the batch over the batch axes
     where it divides (`batch_spec`, as the reference places its tokens),
-    replicated on every other mesh dim; plain tensors as they are."""
+    replicated on every other mesh dim, and their gradient placed so too;
+    plain tensors as they are. A mixer's output (a partial sum over
+    "model" after a row-parallel product) is put so before it joins the
+    residual stream, which then stays replicated over "model" both ways:
+    a partial residual, or a partial gradient of one, would reach the next
+    product, whose cheapest DTensor strategy then gathers the batch."""
     if not is_dtensor(x):
         return x
     mesh = x.device_mesh
-    return x.redistribute(mesh, to_placements(batch_spec(mesh, x.shape),
-                                              mesh))
+    return _BatchLayout.apply(x, to_placements(batch_spec(mesh, x.shape),
+                                               mesh))
+
+
+class _BatchLayout(torch.autograd.Function):
+    """x.redistribute(mesh, pl), whose backward redistributes the gradient
+    to pl too (DTensor's own would hand it back partial)."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.redistribute(x.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.pl), None
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

@@ -61,6 +61,51 @@ def replicated_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+def batch_placements(x) -> list:
+    """DTensor x's placements with only its batch (dim 0) sharding kept:
+    `Shard(0)` where x is split on dim 0, `Replicate()` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+
+
+def whole_heads(t, n_heads: int):
+    """t [..., n_heads * hd]; a DTensor split on its last dim over a mesh
+    dim whose size does not divide n_heads (qwen2-0.5b's 14 heads on a
+    "model" axis of 4 or 16, whose projection the rules split by columns)
+    is gathered there, so that its view into heads keeps whole heads."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    last, mesh = t.ndim - 1, t.device_mesh
+    pl = [Replicate() if p.is_shard(last) and n_heads % mesh.size(i) else p
+          for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+def _flat_heads(out, n_heads: int):
+    """out [B, T, H, hd] -> [B, T, H * hd] for the output projection; on a
+    DTensor, its gradient split by columns over a mesh dim that does not
+    divide the heads is gathered first (`whole_heads`), so that the
+    flatten's backward, a view into heads, keeps whole heads."""
+    B, T = out.shape[:2]
+    flat = out.reshape(B, T, -1)
+    return _WholeHeadsGrad.apply(flat, n_heads) if is_dtensor(flat) else flat
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity, whose backward passes the gradient through
+    `whole_heads`."""
+
+    @staticmethod
+    def forward(ctx, x, n_heads):
+        ctx.n_heads = n_heads
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_heads(g, ctx.n_heads), None
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -193,15 +238,24 @@ def _placements(mesh, B: int, KV: int, T: int | None = None):
     return tuple(qp), tuple(kvp), tuple(posp)
 
 
-def _local_map(fn, out_placements, in_placements, mesh):
+def _local_map(fn, out_placements, in_placements, mesh, split=None):
     """`local_map` of fn; out_placements is a tuple with one entry per
-    output."""
+    output. `split[i]` says that fn's work is divided over mesh dim i (a
+    batch or head shard per rank): an input replicated there is read by
+    every rank for its own part, so its gradient is the sum over the ranks
+    (`Partial()`), not any one rank's."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     if len(out_placements) == 1:    # one output: its placements, a list
         out_placements = list(out_placements[0])
+    grad = None
+    if split is not None:
+        grad = tuple(None if pl is None else tuple(
+            Partial() if cut and p.is_replicate() else p
+            for p, cut in zip(pl, split)) for pl in in_placements)
     return local_map(fn, out_placements=out_placements,
-                     in_placements=in_placements, device_mesh=mesh,
-                     redistribute_inputs=True)
+                     in_placements=in_placements, in_grad_placements=grad,
+                     device_mesh=mesh, redistribute_inputs=True)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -311,9 +365,9 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, H, hd)
-    k = k.reshape(B, T, KV, hd)
-    v = v.reshape(B, T, KV, hd)
+    q = whole_heads(q, H).reshape(B, T, H, hd)
+    k = whole_heads(k, KV).reshape(B, T, KV, hd)
+    v = whole_heads(v, KV).reshape(B, T, KV, hd)
     q_pos = pos0 + torch.arange(T, device=x.device)
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k = apply_rope(k, q_pos, cfg.rope_theta)
@@ -325,7 +379,7 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = (_sharded_prefill if sharded else _prefill_attention)(
             q, k, v, q_pos, q_pos, window, use_kernels, unchunked)
     if cache_kv is None:
-        return out.reshape(B, T, H * hd) @ p["wo"], (k, v)
+        return _flat_heads(out, H) @ p["wo"], (k, v)
     kc, vc = cache_kv
     S = kc.shape[1]
     if sharded:
@@ -338,7 +392,7 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
             k_pos = decode_key_positions(S, pos0, window, x.device)
         out = (_sharded_decode if sharded else _decode_attention)(
             q, kc, vc, pos0, k_pos, window, use_kernels)
-    out = out.reshape(B, T, H * hd) @ p["wo"]
+    out = _flat_heads(out, H) @ p["wo"]
     return out, (kc, vc)
 
 
@@ -352,14 +406,18 @@ def _write(kc, vc, k, v, pos0: int, window: int, s0: int = 0,
     T, S_l = k.shape[1], kc.shape[1]
     S = S_l if S is None else S
     if window > 0 and S == window:
+        # the last `keep` positions land on slots a, a+1, .. (mod S): two
+        # runs of slots, [a, S) then [0, ..), each written where it meets
+        # this shard's slots
         keep = min(T, S)
-        slot = (pos0 + torch.arange(T - keep, T, device=k.device)) % S
-        k, v = k[:, T - keep:], v[:, T - keep:]
-        if S_l < S:
-            mine = (slot >= s0) & (slot < s0 + S_l)
-            slot, k, v = slot[mine], k[:, mine], v[:, mine]
-        kc[:, slot - s0] = k
-        vc[:, slot - s0] = v
+        a = (pos0 + T - keep) % S
+        first = min(keep, S - a)
+        for j0, j1, slot0 in ((0, first, a), (first, keep, 0)):
+            lo, hi = max(slot0, s0), min(slot0 + j1 - j0, s0 + S_l)
+            if lo < hi:
+                src = T - keep + j0 + lo - slot0
+                kc[:, lo - s0:hi - s0] = k[:, src:src + hi - lo]
+                vc[:, lo - s0:hi - s0] = v[:, src:src + hi - lo]
         return kc, vc
     if pos0 + T > S:
         raise ValueError(f"cache of {S} positions cannot take positions "

@@ -7,16 +7,18 @@ as the reference. A prompt runs the chunked SSD closed form: through the
 Hopper scan kernel (`kernels.ssm_scan`, which adds D x itself) by default,
 or through `_ssd_chunked`, the plain twin of the reference's `chunk_step`
 over chunks of CHUNK steps (the last may be short), when
-`use_kernels=False`. Decode is the O(1) step.
+`use_kernels=False`. Decode is the O(1) step. On DTensors the conv and
+the scan run on each rank's heads through `local_map`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..device import refuse_dtensor
+from ..device import is_dtensor
 from ..kernels.ssm_scan.ops import ssm_scan
 from .config import ModelConfig
+from .layers import _ContiguousGrad, _local_map
 
 CHUNK = 128
 # log(expm1(0.01)) taken in f32, as the reference does, so dt starts at 0.01.
@@ -85,30 +87,31 @@ def _ssd_chunked(la, x, Bm, Cm, dt, S):
     return torch.cat(ys, dim=1), S
 
 
-def mamba2_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                 cache: dict | None, use_kernels: bool = True):
-    """x [B,T,d] -> (out [B,T,d], dict(ssm [B,nh,hp,N] f32, conv
-    [B,W-1,di])). `cache` holds the previous call's states."""
-    refuse_dtensor("the Mamba2 token mixer", x)
-    B, T, d = x.shape
-    di, nh, hp = cfg.di, cfg.ssm_heads, cfg.ssm_head_dim
-    z = F.silu(x @ p["wz"])                              # [B, T, di]
-    xin, conv_state = _causal_conv(
-        x @ p["wx"], p["conv"], None if cache is None else cache["conv"])
-    Bm = (x @ p["wB"]).float()                           # [B, T, N]
-    Cm = (x @ p["wC"]).float()                           # [B, T, N]
-    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])   # [B, T, nh]
-    A = -torch.exp(p["A_log"].float())                   # [nh]
-    D = p["D"].float()
+def _ssd_heads(cfg: ModelConfig, z, xr, conv, conv_state, Bm, Cm, dt_raw,
+               dt_bias, A_log, D, S0, use_kernels: bool):
+    """The causal conv, the scan and the gate over the heads these tensors
+    hold (all of them, or one rank's shard): z, xr [B,T,h*hp] (z after its
+    silu), conv [W,h*hp], conv_state [B,W-1,h*hp] or None, Bm, Cm [B,T,N]
+    f32 (every head reads all of N), dt_raw [B,T,h] f32 before its bias,
+    dt_bias, A_log, D [h], S0 [B,h,hp,N] or None. Returns (gated y
+    [B,T,h*hp] in z's dtype, final state f32, the conv's trailing
+    inputs)."""
+    B, T, dil = xr.shape
+    hp = cfg.ssm_head_dim
+    nh = dil // hp
+    xin, conv_state = _causal_conv(xr, conv, conv_state)
+    dt = F.softplus(dt_raw + dt_bias)                    # [B, T, nh]
+    A = -torch.exp(A_log.float())                        # [nh]
+    D = D.float()
     xh = xin.reshape(B, T, nh, hp).float()
-    S0 = None if cache is None else cache["ssm"].float().contiguous()
+    S0 = None if S0 is None else S0.float().contiguous()
 
     if T > 1 and use_kernels:
         y, S_out = ssm_scan(xh, Bm, Cm, dt, A, D, S0)   # adds D x itself
     else:
         if S0 is None:
             S0 = torch.zeros((B, nh, hp, cfg.ssm_state), dtype=torch.float32,
-                             device=x.device)
+                             device=xr.device)
         if T == 1:
             a = torch.exp(dt[:, 0] * A)                  # [B, nh]
             S_out = (S0 * a[..., None, None]
@@ -118,9 +121,59 @@ def mamba2_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         else:
             y, S_out = _ssd_chunked(dt * A, xh, Bm, Cm, dt, S0)
         y = y + D[:, None] * xh
+    return y.reshape(B, T, dil).to(z.dtype) * z, S_out, conv_state
 
-    out = (y.reshape(B, T, di).to(x.dtype) * z) @ p["wo"]
-    return out, dict(ssm=S_out, conv=conv_state)
+
+def _sharded_ssd_heads(x, cfg: ModelConfig, *args, use_kernels: bool):
+    """`_ssd_heads` on DTensors, rank by rank through `local_map`: the
+    batch over the axes that split x's, the SSM heads over "model" where
+    they divide it (z, xr, dt and the conv on their last dim, the state on
+    nh, dt_bias, A_log and D sliced to the local heads), Bm and Cm
+    replicated, since every head's scan needs all of N."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    act, vec, conv, st, rep = [], [], [], [], []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if x.placements[i].is_shard(0):
+            pl = (Shard(0), Replicate(), Replicate(), Shard(0), Shard(0))
+        elif name == "model" and cfg.ssm_heads % mesh.size(i) == 0:
+            pl = (Shard(2), Shard(0), Shard(1), Shard(1), Replicate())
+        else:
+            pl = (Replicate(),) * 5
+        for out, p in zip((act, vec, conv, st, rep), pl):
+            out.append(p)
+    z, xr, cw, cs, Bm, Cm, dt_raw, dt_bias, A_log, D, S0 = args
+
+    def fn(z, xr, cw, cs, Bm, Cm, dt_raw, dt_bias, A_log, D, S0):
+        z, xr, cw, Bm, Cm, dt_raw = (_ContiguousGrad.apply(t)
+                                     for t in (z, xr, cw, Bm, Cm, dt_raw))
+        y, S, c = _ssd_heads(cfg, z, xr, cw, cs, Bm, Cm, dt_raw, dt_bias,
+                             A_log, D, S0, use_kernels)
+        return y.contiguous(), S, c.contiguous()
+    return _local_map(fn, (act, st, act),
+                      (act, act, conv, None if cs is None else act, rep, rep,
+                       act, vec, vec, vec, None if S0 is None else st),
+                      mesh, [p.is_shard() for p in act])(*args)
+
+
+def mamba2_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 cache: dict | None, use_kernels: bool = True):
+    """x [B,T,d] -> (out [B,T,d], dict(ssm [B,nh,hp,N] f32, conv
+    [B,W-1,di])). `cache` holds the previous call's states. On DTensors
+    (`parallel.sharding.distribute_params`) the projections are DTensor
+    products (wx, wz, wdt column-parallel, wo row-parallel) and the conv
+    and the scan run on each rank's heads (`_sharded_ssd_heads`)."""
+    args = (F.silu(x @ p["wz"]), x @ p["wx"], p["conv"],
+            None if cache is None else cache["conv"],
+            (x @ p["wB"]).float(), (x @ p["wC"]).float(),   # [B, T, N]
+            (x @ p["wdt"]).float(), p["dt_bias"], p["A_log"], p["D"],
+            None if cache is None else cache["ssm"])
+    if is_dtensor(x):
+        y, S_out, conv_state = _sharded_ssd_heads(x, cfg, *args,
+                                                  use_kernels=use_kernels)
+    else:
+        y, S_out, conv_state = _ssd_heads(cfg, *args, use_kernels)
+    return y @ p["wo"], dict(ssm=S_out, conv=conv_state)
 
 
 def mamba2_cache_init(cfg: ModelConfig, B: int, dtype: torch.dtype,

@@ -23,22 +23,27 @@ Nothing here reads a tensor back to the host: the capacity comes from the
 shapes, and drops are masks, so a decode step issues its launches without
 waiting for the device.
 
-The reference's sharding hint `cfg.moe_expert_shard_constraint`
-(`with_sharding_constraint` of the dispatch buffers to the `model` axis)
-does nothing without a device mesh, and here nothing at all: on DTensor
-activations `moe_apply` raises NotImplementedError until the MoE runs
-under a mesh (ROADMAP item 9c).
+On DTensor activations (`parallel.sharding.distribute_params`) the
+routed experts run rank by rank (`_sharded_experts`): expert parallelism
+over "model" where E divides it, else plain TP on the experts' f; tokens
+stay replicated over "model", so no all-to-all is needed; the capacity
+and the drops are the global batch's. Each rank builds the dispatch
+buffers of its own experts only, so its buffers and the products' output
+are E over "model" by construction: the layout that the reference's hint
+`cfg.moe_expert_shard_constraint` pins. In the port the flag therefore
+changes nothing, with a mesh or without one (without one it does nothing
+in the reference either).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..device import refuse_dtensor
+from ..device import is_dtensor
 from ..kernels.int8_grouped_matmul.ops import int8_grouped_matmul
 from ..kernels.int8_grouped_matmul.ref import int8_grouped_matmul_ref
 from .config import ModelConfig
-from .layers import mlp_apply
+from .layers import _ContiguousGrad, _local_map, mlp_apply
 
 EXPERT_WEIGHTS = ("w1", "w3", "w2")
 
@@ -82,9 +87,10 @@ def moe_params(normal, full, cfg: ModelConfig, n: int) -> dict:
     With `moe_w8a8`, w1/w3/w2 are int8 beside f32 scales `*_s` [n,E,1,out],
     each expert quantised from its own draw in the model's dtype, so no
     layer of unquantised experts is ever held, into the K-major storage
-    (see the module note). `normal(shape, fan_in)` and
-    `full(value, shape)` are the decoder's drawing functions (the MoE tree
-    has no constant leaves, so `full` goes unused)."""
+    (see the module note); on the meta device nothing is drawn.
+    `normal(shape, fan_in)` and `full(value, shape)` are the decoder's
+    drawing functions (the MoE tree has no constant leaves, so `full` goes
+    unused)."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = dict(router=normal((n, d, E), d).float())
     dev = p["router"].device
@@ -96,7 +102,7 @@ def moe_params(normal, full, cfg: ModelConfig, n: int) -> dict:
         q = torch.empty((n, E, d_out, d_in), dtype=torch.int8,
                         device=dev).transpose(-1, -2)
         s = torch.empty((n, E, 1, d_out), dtype=torch.float32, device=dev)
-        for i in range(n):
+        for i in range(n if dev.type != "meta" else 0):
             for e in range(E):
                 q[i, e], s[i, e] = quantize_weight(normal((d_in, d_out),
                                                           d_in))
@@ -148,9 +154,12 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
                       / cfg.n_experts))
 
 
-def dispatch_slots(idx: torch.Tensor, C: int):
+def dispatch_slots(idx: torch.Tensor, C: int,
+                   offset: torch.Tensor | None = None):
     """Each (token, choice) copy's rank within its expert, in token order,
     and whether it fits the capacity: (slot [N*k] int64, keep [N*k] bool).
+    `offset` [E]: copies of each expert in the batch before these tokens
+    (a data rank's predecessors), added to the ranks.
     The reference counts ranks with a cumulative sum of one-hots [N*k, E];
     the same ranks come from a stable sort of the copies by expert: a
     copy's place in its expert's run. That moves N*k indices instead of
@@ -161,41 +170,152 @@ def dispatch_slots(idx: torch.Tensor, C: int):
     run_start = torch.searchsorted(sorted_e, sorted_e)
     rank = torch.arange(e_flat.numel(), device=idx.device) - run_start
     slot = torch.empty_like(rank).scatter_(0, order, rank)
+    if offset is not None:
+        slot = slot + offset[e_flat]
     return slot, slot < C
+
+
+def _experts(cfg: ModelConfig, xf: torch.Tensor, gate, idx, w1, w3, w2,
+             scales: dict, use_kernels: bool, C: int, offset=None,
+             e0: int = 0) -> torch.Tensor:
+    """The routed experts of tokens xf [N, d], routed to (gate, idx)
+    [N, k]: rank, dispatch into [E_l, C, d] buffers of the experts
+    w1/w3/w2 hold (E_l of them from expert e0 on: all E, or one rank's),
+    the SwiGLU products, and the combine of those experts' copies,
+    weighted by their gates. `offset` [E]: copies of each expert before
+    these tokens in the batch whose capacity C is. Only the E_l experts'
+    buffer rows are built."""
+    N, d = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_l = w1.shape[0]
+    slot, keep = dispatch_slots(idx, C, offset)
+    # Dispatch: copy the kept copies into row e * C + slot of the flat
+    # buffer; dropped copies, and copies for experts held elsewhere, go
+    # to one spare row past the end, sliced off.
+    e = idx.reshape(-1) - e0
+    if E_l < E:
+        keep = keep & (e >= 0) & (e < E_l)
+    row = torch.where(keep, e * C + slot, E_l * C)
+    buf = xf.new_zeros((E_l * C + 1, d))
+    buf.index_copy_(0, row, xf[:, None].expand(N, k, d).reshape(N * k, d))
+    buf = buf[:E_l * C].view(E_l, C, d)
+
+    if scales:
+        ho = _w8a8_ffn(dict(w1=w1, w3=w3, w2=w2, **scales), buf, use_kernels)
+    else:
+        h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+        del buf                 # the buffers are the block's largest tensors
+        ho = torch.bmm(h, w2)
+
+    # Combine: gather each copy's result, weight by its gate.
+    out_k = ho.reshape(E_l * C, d)[torch.where(keep, row, 0)]
+    out_k = torch.where(keep[:, None], out_k, 0)
+    return (out_k.reshape(N, k, d) * gate[..., None].to(xf.dtype)).sum(dim=1)
+
+
+def _scales(p: dict, cfg: ModelConfig) -> dict:
+    """The W8A8 experts' scales (w1_s, w3_s, w2_s); none for bf16 ones."""
+    if not (cfg.moe_w8a8 and "w1_s" in p):
+        return {}
+    return {n + "_s": p[n + "_s"] for n in EXPERT_WEIGHTS}
 
 
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               use_kernels: bool = True) -> torch.Tensor:
-    """x [B, T, d] -> [B, T, d]."""
-    refuse_dtensor("the MoE channel mixer", x)
+    """x [B, T, d] -> [B, T, d]. On DTensors the routed experts run rank
+    by rank (`_sharded_experts`) and the shared expert is DTensor
+    products."""
     B, T, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    N = B * T
-    xf = x.reshape(N, d)
+    if is_dtensor(x):
+        out = _sharded_experts(p, cfg, x, use_kernels)
+        return out + mlp_apply(p["shared"], x) if "shared" in p else out
+    xf = x.reshape(B * T, d)
     gate, idx = route(p, cfg, xf)
-    C = capacity(cfg, N)
-    slot, keep = dispatch_slots(idx, C)
-    # Dispatch: copy the kept copies into row e * C + slot of the flat
-    # buffer; dropped copies go to one spare row past the end, sliced off.
-    row = torch.where(keep, idx.reshape(-1) * C + slot, E * C)
-    buf = x.new_zeros((E * C + 1, d))
-    buf.index_copy_(0, row, xf[:, None].expand(N, k, d).reshape(N * k, d))
-    buf = buf[:E * C].view(E, C, d)
-
-    if cfg.moe_w8a8 and "w1_s" in p:
-        ho = _w8a8_ffn(p, buf, use_kernels)
-    else:
-        h = F.silu(torch.bmm(buf, p["w1"])) * torch.bmm(buf, p["w3"])
-        del buf                 # the buffers are the block's largest tensors
-        ho = torch.bmm(h, p["w2"])
-
-    # Combine: gather each copy's result, weight by its gate.
-    out_k = ho.reshape(E * C, d)[torch.where(keep, row, 0)]
-    out_k = torch.where(keep[:, None], out_k, 0)
-    out = (out_k.reshape(N, k, d) * gate[..., None].to(x.dtype)).sum(dim=1)
+    out = _experts(cfg, xf, gate, idx, p["w1"], p["w3"], p["w2"],
+                   _scales(p, cfg), use_kernels, capacity(cfg, B * T))
     if "shared" in p:
         out = out + mlp_apply(p["shared"], xf)
     return out.reshape(B, T, d)
+
+
+def _batch_offsets(idx: torch.Tensor, E: int, mesh, batch_dims: list):
+    """This data rank's expert choices idx [N, k]. Returns (each expert's
+    copies on the data ranks before this one, in the global batch's token
+    order, [E]; the number of data ranks): the per-expert counts [E] are
+    all-gathered over the mesh dims that split the batch, minor to major,
+    so rank r of the batch is row r (DTensor splits a dim over several
+    mesh dims major to minor)."""
+    from torch.distributed import _functional_collectives as funcol
+    e_flat = idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=idx.device)
+    counts.index_add_(0, e_flat, torch.ones_like(e_flat))
+    g, me, n = counts[None], 0, 1
+    for i in reversed(batch_dims):
+        g = funcol.all_gather_tensor(g, 0, (mesh, i))
+        if isinstance(g, funcol.AsyncCollectiveTensor):
+            g = g.wait()
+        me += mesh.get_local_rank(i) * n
+        n *= mesh.size(i)
+    return g[:me].sum(dim=0), n
+
+
+def _sharded_experts(p: dict, cfg: ModelConfig, x, use_kernels: bool):
+    """The routed experts on DTensor x [B,T,d] (batch over the batch axes,
+    replicated over "model"), rank by rank through `local_map`.
+
+    The expert weights are placed by the reference's rule: E over "model"
+    where it divides (expert parallelism), else their wide dim f (plain
+    TP). Tokens are replicated over "model", so no rank needs an
+    all-to-all: each routes the same copies as its "model" peers, fills
+    its own experts' buffer rows and runs the products on its experts (or
+    its slice of f); its output is a partial sum over "model". The FSDP
+    axes of the weights are gathered, as any weight's. The capacity is the
+    global batch's, as in the reference's program: each data rank counts
+    its copies per expert, the counts are all-gathered over the batch
+    axes, and a copy's slot is its rank in the whole batch's token order;
+    a rank's buffers hold the global C slots, its own copies among them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    E, f = cfg.n_experts, cfg.d_ff
+    scales = _scales(p, cfg)
+    R = Replicate()
+    # per mesh dim: placements of (x, w1/w3, w2, w1_s/w3_s, w2_s), output
+    xp, w13, w2p, s13, s2p, out, split = [], [], [], [], [], [], []
+    batch_dims, e0 = [], 0
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if x.placements[i].is_shard(0):
+            batch_dims.append(i)
+            pl, o = (Shard(0), R, R, R, R), Shard(0)
+        elif name == "model" and E % n == 0:
+            pl, o = (R, Shard(0), Shard(0), Shard(0), Shard(0)), Partial()
+            e0 = mesh.get_local_rank(i) * (E // n)
+        elif name == "model" and f % n == 0:
+            pl, o = (R, Shard(2), Shard(1), Shard(2), R), Partial()
+        else:
+            pl, o = (R,) * 5, R
+        for lst, q in zip((xp, w13, w2p, s13, s2p), pl):
+            lst.append(q)
+        out.append(o)
+        split.append(not (pl[0].is_replicate() and pl[1].is_replicate()))
+    s_in = tuple(s2p if n == "w2_s" else s13 for n in scales)
+
+    def fn(x, router, w1, w3, w2, *sc):
+        x = _ContiguousGrad.apply(x)
+        B, T, d = x.shape
+        xf = x.reshape(B * T, d)
+        if sc:                  # a gathered shard is contiguous: K-major
+            w1, w3, w2 = (kmajor(w) for w in (w1, w3, w2))
+        gate, idx = route(dict(router=router), cfg, xf)
+        offset, n_ranks = (_batch_offsets(idx, E, mesh, batch_dims)
+                           if batch_dims else (None, 1))
+        o = _experts(cfg, xf, gate, idx, w1, w3, w2, dict(zip(scales, sc)),
+                     use_kernels, capacity(cfg, B * T * n_ranks), offset, e0)
+        return o.reshape(B, T, d)
+    return _local_map(fn, (out,),
+                      (xp, [R] * mesh.ndim, w13, w13, w2p, *s_in), mesh,
+                      split)(x, p["router"], p["w1"], p["w3"], p["w2"],
+                             *scales.values())
 
 
 def load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,

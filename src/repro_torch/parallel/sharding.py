@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable
 
+import torch
 
 
 class Spec(tuple):
@@ -259,22 +260,52 @@ def to_placements(spec: Spec, mesh) -> list:
     return out
 
 
+def _shard_of(t, mesh, placements) -> Any:
+    """This rank's even shard of t under `placements` (a tensor dim split
+    over several mesh dims is split in mesh order, as DTensor splits it).
+    t itself where no mesh dim of more than one rank splits it, so a
+    one-device mesh shares t's storage. Else a tensor of its own, laid out
+    as t: contiguous, or K-major for the W8A8 expert weights (int8 with a
+    unit stride on d_in, `moe.kmajor`), which `int8_grouped_matmul`
+    routes by layout. Meta tensors give meta shards: nothing is moved."""
+    local = t.detach()
+    for i, p in enumerate(placements):
+        n = mesh.size(i)
+        if p.is_shard() and n > 1:
+            size = local.shape[p.dim] // n
+            local = local.narrow(p.dim, mesh.get_local_rank(i) * size, size)
+    if local.shape == t.shape:
+        return local
+    if t.dtype == torch.int8 and t.dim() >= 2 and t.stride(-2) == 1:
+        return local.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return local.clone(memory_format=torch.contiguous_format)
+
+
 def _distribute(tree: Any, rule: Callable, mesh) -> Any:
-    from torch.distributed.tensor import distribute_tensor
+    """Each leaf as a DTensor placed by `rule`, built from this rank's
+    shard (`_shard_of`) with no communication: every rank must hold the
+    same whole tree, as the port's seeded trees are."""
+    from torch.distributed.tensor import DTensor
     axes = _axes(mesh)
-    return map_with_path(
-        lambda path, t: distribute_tensor(
-            t, mesh, to_placements(rule(path, tuple(t.shape), axes), mesh)),
-        tree)
+
+    def place(path, t):
+        pl = to_placements(rule(path, tuple(t.shape), axes), mesh)
+        return DTensor.from_local(_shard_of(t, mesh, pl), mesh, pl,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return map_with_path(place, tree)
 
 
 def distribute_params(params: Any, mesh) -> Any:
-    """The port's parameter tree as DTensors placed by `param_specs`."""
+    """The port's parameter tree as DTensors placed by `param_specs`; real
+    or meta tensors (the dry-run's), the W8A8 expert weights K-major in
+    their shards."""
     return _distribute(params, _param_spec, mesh)
 
 
 def distribute_cache(cache: Any, mesh, prefer_hd: bool = False) -> Any:
-    """The port's cache tree as DTensors placed by `cache_specs`."""
+    """The port's cache tree as DTensors placed by `cache_specs`; real or
+    meta tensors."""
     return _distribute(
         cache, lambda path, shp, axes: _cache_spec(path, shp, axes, prefer_hd),
         mesh)

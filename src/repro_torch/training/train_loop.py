@@ -26,10 +26,17 @@ def as_trainable(params: Any) -> Any:
                               for p in leaves(params)])
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                    use_kernels: bool = True) -> Callable:
+    """One step: the loss, its gradients by autograd, AdamW. `use_kernels`
+    as `decoder.train_loss` (False: the plain path, as the dry-run traces
+    on meta tensors)."""
     def train_step(params: Any, opt_state: dict, batch: dict):
-        loss = decoder.train_loss(params, cfg, batch)
-        grads = unflatten(params, torch.autograd.grad(loss, leaves(params)))
+        loss = decoder.train_loss(params, cfg, batch, use_kernels=use_kernels)
+        # a leaf the loss does not reach (zamba2's shared attention when
+        # the depth is cut below one super-block) gets zeros, as jax.grad
+        grads = unflatten(params, torch.autograd.grad(
+            loss, leaves(params), allow_unused=True, materialize_grads=True))
         params, opt_state, metrics = apply_updates(opt_cfg, params, grads,
                                                    opt_state)
         metrics["loss"] = loss.detach()

@@ -1,0 +1,474 @@
+"""The port's dry-run, its op counter, the meta-device specs, the
+production meshes and the roofline, against the JAX package's
+(`tests/test_distribution.py` has the reference's twins).
+
+Everything that needs a process group runs in a subprocess with a fake
+one (`torch.testing._internal.distributed.fake_pg`): it is global to its
+process, and this one keeps none (`test_torch_parallel`'s mesh test
+asserts so). The reference's HLO count runs in a subprocess of its own
+with 8 host devices, as its test does.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.analysis import roofline
+from repro_torch.analysis.op_stats import OpCounter, OpStats
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch import mesh as port_mesh
+from repro_torch.launch import specs, sweep
+from repro_torch.models import decoder
+from repro_torch.parallel.sharding import map_with_path
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARTIFACT = os.path.join(REPO, "experiments", "dryrun_results_torch.json")
+# qwen2-0.5b's forward loss at 4 layers on a (2, 4) mesh, tokens [8, 256]:
+# the port runs attention on every "model" rank (its 2 KV heads do not
+# divide 4, so the kernels' placements replicate whole heads), where
+# GSPMD splits the attention's heads; the port's count is the larger.
+FLOP_TOL = 0.10
+
+
+def _run(code: str, env_extra=None, timeout: float = 600.0):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          capture_output=True, text=True, timeout=timeout,
+                          env=env)
+
+
+def _last_json(proc) -> dict:
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# ---------------------------------------------------------------------------
+# The op counter
+# ---------------------------------------------------------------------------
+
+def test_op_counter_counts_the_local_product():
+    """[256, 64, 4096] @ [4096, 8192] in bf16 on the meta device, x split
+    on its batch over "data" and w on its columns over "model" of a 16x16
+    mesh over 256 fake ranks: the counter sees one rank's
+    [1024, 4096] x [4096, 512] (4.29e9 flops), not the global product
+    (1.10e12, which `FlopCounterMode` beside it counts), and no call of
+    DTensor's sharding propagation."""
+    got = _last_json(_run("""
+        import json, torch
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.analysis.op_stats import OpCounter
+        from repro_torch.launch.dryrun import init_fake_world
+        from repro_torch.launch.mesh import make_production_mesh
+        init_fake_world(256)
+        mesh = make_production_mesh(device="cpu")
+        meta = dict(device="meta", dtype=torch.bfloat16)
+        x = DTensor.from_local(torch.empty(16, 64, 4096, **meta), mesh,
+                               [Shard(0), Replicate()])
+        w = DTensor.from_local(torch.empty(4096, 512, **meta), mesh,
+                               [Replicate(), Shard(1)])
+        c = OpCounter()
+        with c, FlopCounterMode(display=False) as fc:
+            y = x @ w
+        print(json.dumps(dict(flops=c.stats.flops,
+                              global_flops=fc.get_total_flops(),
+                              shape=list(y.shape),
+                              local=list(y.to_local().shape))))
+    """))
+    assert got["flops"] == 2 * 1024 * 4096 * 512 == 4294967296
+    assert got["global_flops"] == 2 * 256 * 64 * 4096 * 8192
+    assert got["shape"] == [256, 64, 8192] and got["local"] == [16, 64, 512]
+
+
+def test_op_counter_weights_a_loop_by_its_trip_count():
+    """The twin of `test_hlo_stats_trip_count_weighting`: a loop of N
+    matmuls counts N times one of them (exactly: eager ops are counted as
+    they run), and views and `detach` write no bytes."""
+    d, N = 64, 16
+    w = torch.empty(d, d, device="meta")
+    with OpCounter() as c:
+        h = torch.empty(d, d, device="meta")
+        for _ in range(N):
+            h = h @ w
+        h.view(-1).detach()
+    assert c.stats.flops == 2.0 * d * d * d * N
+    assert c.stats.bytes_written == N * d * d * 4
+    assert c.stats.bytes_accessed == N * 3 * d * d * 4
+
+
+def test_op_stats_bytes_estimate_is_the_reference_formula():
+    from repro.analysis.hlo_stats import HloStats
+    for lo, hi, arg in ((10.0, 40.0, 5.0), (100.0, 20.0, 0.0)):
+        ref = HloStats(bytes_written=lo, bytes_accessed=hi,
+                       argument_bytes=arg)
+        got = OpStats(bytes_written=lo, bytes_accessed=hi, argument_bytes=arg)
+        assert got.bytes_estimate == ref.bytes_estimate
+    assert ([f.name for f in dataclasses.fields(OpStats)]
+            == [f.name for f in dataclasses.fields(HloStats)])
+
+
+# ---------------------------------------------------------------------------
+# The dry-run
+# ---------------------------------------------------------------------------
+
+_REF_SMOKE = """
+    import dataclasses, json
+    import jax, jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.models import decoder
+    from repro.parallel import sharding as shd
+    from repro.launch.specs import params_specs
+    from repro.analysis.hlo_stats import analyze
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=4)
+    mesh = jax.make_mesh((2, 4), ("data", "model"))
+    p_shapes = params_specs(cfg)
+    p_shard = shd.to_shardings(shd.param_specs(p_shapes, mesh), mesh)
+    toks = jax.ShapeDtypeStruct((8, 256), jnp.int32)
+    tok_shard = jax.sharding.NamedSharding(
+        mesh, shd.batch_spec(mesh, toks.shape))
+    with mesh:
+        f = jax.jit(lambda p, t: decoder.train_loss(
+            p, cfg, dict(tokens=t, targets=t)),
+            in_shardings=(p_shard, tok_shard))
+        compiled = f.lower(p_shapes, toks).compile()
+    s = analyze(compiled.as_text())
+    print(json.dumps(dict(flops=s.flops, collective_bytes=s.collective_bytes)))
+"""
+
+_PORT_SMOKE = """
+    import dataclasses, json, torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.analysis.op_stats import OpCounter
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import ShapeCase, params_specs
+    from repro_torch.models import decoder
+    from repro_torch.parallel import sharding as shd
+    dryrun.init_fake_world(8)
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    out = {}
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=4)
+    p = shd.distribute_params(params_specs(cfg), mesh)
+    t = torch.empty(8, 256, dtype=torch.int32, device="meta")
+    c = OpCounter()
+    with c, torch.no_grad():
+        decoder.train_loss(p, cfg, dict(tokens=t, targets=t),
+                           use_kernels=False)
+    out["qwen2-0.5b"] = dict(flops=c.stats.flops,
+                             collective_bytes=c.stats.collective_bytes)
+    case = ShapeCase("train_4k", 256, 8, "train")
+    for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b"):
+        c = dataclasses.replace(get_config(arch), n_layers=2)
+        out[arch] = dryrun.row(arch, "train_4k", False, c, case, mesh)
+    print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def smoke_rows():
+    """The port's side of the smoke, in a subprocess: qwen2-0.5b at 4
+    layers, the forward loss on a (2, 4) mesh of 8 fake ranks, tokens
+    [8, 256], as the reference's test; and a train step (forward,
+    backward, AdamW) row of rwkv6-7b, zamba2-7b and kimi-k2 at 2 layers
+    on the same mesh, batch [8, 256]."""
+    return _last_json(_run(_PORT_SMOKE))
+
+
+def test_dryrun_smoke_subprocess(smoke_rows):
+    """Flops and collectives on every family; the qwen2-0.5b forward
+    within FLOP_TOL of the reference's trip-count-aware HLO count
+    (`analysis.hlo_stats.analyze` of the compiled program, per device)."""
+    pytest.importorskip("jax")
+    ref = _last_json(_run(_REF_SMOKE, {
+        "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+        "JAX_PLATFORMS": "cpu"}))
+    got = smoke_rows["qwen2-0.5b"]
+    assert got["flops"] > 1e9 and got["collective_bytes"] > 0
+    assert ref["flops"] > 1e9 and ref["collective_bytes"] > 0
+    ratio = got["flops"] / ref["flops"]
+    assert abs(ratio - 1) <= FLOP_TOL, (got, ref, ratio)
+    assert ratio >= 1, "the port counts replicated attention, not less"
+    for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b"):
+        r = smoke_rows[arch]
+        assert r["status"] == "ok" and r["kind"] == "train", arch
+        assert r["hlo_flops_per_device"] > 1e9, arch
+        assert r["collective_bytes_per_device"] > 0, arch
+        assert r["raw_cost_analysis_flops"] > r["hlo_flops_per_device"], arch
+        assert r["memory"]["argument_bytes"] > 0, arch
+        assert r["memory"]["temp_bytes"] > 0, arch
+
+
+def test_split_layer_stack_is_gathered_once_per_step():
+    """llama4-scout's smoke config at 4 and 8 layers on a (2, 4) mesh of
+    8 fake ranks: the rules split its shared expert's layer dim over
+    "model" (4 divides both depths). Prefill and decode gather that stack
+    once per step, so twice the layers gather at most twice the bytes
+    (gathered once per layer, it would be four times the stack's bytes).
+    The dispatch buffers are each rank's own experts' either way, so
+    `moe_expert_shard_constraint` leaves the row unchanged."""
+    got = _last_json(_run("""
+        import dataclasses, json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.specs import ShapeCase
+        dryrun.init_fake_world(8)
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        arch = "llama4-scout-17b-a16e"
+        base = get_config(arch).smoke()
+        out = {}
+        for n in (4, 8):
+            cfg = dataclasses.replace(base, n_layers=n)
+            for kind in ("prefill", "decode"):
+                case = ShapeCase(kind + "_32k", 64, 8, kind)
+                for flag in (False, True):
+                    c = dataclasses.replace(
+                        cfg, moe_expert_shard_constraint=flag)
+                    r = dryrun.row(arch, case.name, False, c, case, mesh)
+                    out[f"{kind}{n}{flag}"] = [
+                        r["collectives"]["all-gather"],
+                        r["hlo_bytes_per_device"],
+                        r["collective_bytes_per_device"]]
+        print(json.dumps(out))
+    """))
+    for kind in ("prefill", "decode"):
+        assert got[f"{kind}8False"][0] <= 2 * got[f"{kind}4False"][0], got
+        for n in (4, 8):
+            assert got[f"{kind}{n}True"] == got[f"{kind}{n}False"], got
+
+
+@pytest.fixture(scope="module")
+def decode_row(tmp_path_factory):
+    """`python -m repro_torch.launch.dryrun` for qwen2-0.5b decode_32k on
+    the single-pod mesh of 256 fake ranks, into a --json file, twice
+    (the second run replaces the first row)."""
+    path = tmp_path_factory.mktemp("dryrun") / "rows.json"
+    for _ in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen2-0.5b", "--shape", "decode_32k", "--json", str(path)],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+    return path
+
+
+def test_dryrun_cli_row_feeds_roofline_and_calibration(decode_row):
+    """The CLI's row has the reference's schema; the roofline analyses it
+    with the H100 constants, and `calibrate_from_dryrun` re-fits the
+    planner from it as the reference's does."""
+    pytest.importorskip("jax")
+    from repro.core import bridge as ref_bridge
+    from repro.core import default_instance as ref_default_instance
+
+    from repro_torch.core import bridge, default_instance
+    rows = json.loads(decode_row.read_text())
+    assert len(rows) == 1
+    r = rows[0]
+    for key in ("arch", "shape", "multi_pod", "status", "n_devices", "kind",
+                "hlo_flops_per_device", "hlo_bytes_per_device",
+                "hlo_bytes_upper", "hlo_bytes_lower",
+                "collective_bytes_per_device", "collectives",
+                "n_collectives", "raw_cost_analysis_flops", "memory",
+                "params_total", "params_active", "lower_s", "compile_s",
+                "opts"):
+        assert key in r, key
+    assert (r["status"], r["n_devices"], r["kind"]) == ("ok", 256, "decode")
+    assert r["hlo_flops_per_device"] > 0 and r["hlo_bytes_per_device"] > 0
+    assert r["collective_bytes_per_device"] > 0
+    assert set(r["collectives"]) <= {"all-gather", "all-reduce",
+                                     "reduce-scatter", "all-to-all",
+                                     "collective-permute"}
+    a = roofline.analyze_row(r)
+    assert a["mesh"] == "16x16" and a["dominant"] in roofline._ADVICE
+    assert a["compute_s"] == r["hlo_flops_per_device"] / 989e12
+    assert "| qwen2-0.5b | decode_32k | 16x16 |" in roofline.markdown_table(
+        [a])
+    arch_to_model = {"qwen2-0.5b": 0}
+    got = bridge.calibrate_from_dryrun(default_instance(), str(decode_row),
+                                       arch_to_model)
+    want = ref_bridge.calibrate_from_dryrun(ref_default_instance(),
+                                            str(decode_row), arch_to_model)
+    np.testing.assert_array_equal(got.B, want.B)
+    assert got.B[0] != default_instance().B[0]
+
+
+def test_roofline_is_the_reference_with_h100_constants():
+    """The port's `analyze_row` is the reference's with the H100
+    data-sheet constants in place of the TPU v5e ones."""
+    pytest.importorskip("jax")
+    from repro.analysis import roofline as ref_roofline
+    from repro.launch import mesh as ref_mesh
+    row = dict(status="ok", arch="qwen2-72b", shape="train_4k",
+               multi_pod=True, n_devices=512, kind="train",
+               hlo_flops_per_device=3.0e15, hlo_bytes_per_device=2.0e12,
+               collective_bytes_per_device=5.0e11, params_active=7.27e10,
+               collectives={"all-reduce": 5.0e11})
+    got, want = roofline.analyze_row(row), ref_roofline.analyze_row(row)
+    for key, const in (("compute_s", "PEAK_FLOPS_BF16"),
+                       ("memory_s", "HBM_BW"), ("collective_s", "ICI_BW")):
+        ratio = getattr(ref_mesh, const) / getattr(port_mesh, const)
+        assert got[key] == pytest.approx(want[key] * ratio, rel=1e-12)
+    for key in ("arch", "shape", "mesh", "model_flops", "hlo_flops_total",
+                "useful_ratio"):
+        assert got[key] == want[key]
+    assert roofline.analyze_row(dict(row, status="failed")) is None
+
+
+def test_dryrun_results_artifact_sane():
+    """The twin of the reference's: the committed sweep artifact covers
+    every (arch, shape) pair on both meshes with ok/skipped status."""
+    if not os.path.exists(ARTIFACT):
+        pytest.skip("sweep not yet run")
+    with open(ARTIFACT) as f:
+        rows = json.load(f)
+    seen = {(r["arch"], r["shape"], r["multi_pod"]): r["status"]
+            for r in rows}
+    missing = [(a, s, mp) for a in ARCH_IDS for s in specs.SHAPES
+               for mp in (False, True) if (a, s, mp) not in seen]
+    if missing:
+        pytest.skip(f"sweep incomplete: {len(missing)} combos outstanding")
+    assert all(v in ("ok", "skipped") for v in seen.values()), seen
+
+
+def test_sweep_skips_done_combos_and_records_failures(tmp_path, capsys,
+                                                      monkeypatch):
+    """`launch.sweep` runs `python -m repro_torch.launch.dryrun` per combo
+    into the given artifact; combos already ok there are skipped, and a
+    failure is recorded in place of an earlier row."""
+    path = tmp_path / "rows.json"
+    rows = [dict(arch="qwen2-0.5b", shape=s, multi_pod=False, status="ok")
+            for s in specs.SHAPES if s != "long_500k"]
+    path.write_text(json.dumps(rows))
+    cmds = []
+
+    def run(cmd, **kw):
+        cmds.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+    monkeypatch.setattr(sweep.subprocess, "run", run)
+    assert sweep.main(["--json", str(path), "--arch", "qwen2-0.5b",
+                       "--single-pod-only"]) == 0
+    assert capsys.readouterr().out.count("skip (done)") == len(rows)
+    assert cmds == [[sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", "qwen2-0.5b", "--shape", "long_500k",
+                     "--json", str(path)]]
+    sweep._record_failure(str(path), "qwen2-0.5b", "train_4k", False, "x")
+    got = {(r["shape"], r["status"]) for r in json.loads(path.read_text())}
+    assert ("train_4k", "failed") in got and ("train_4k", "ok") not in got
+
+
+# ---------------------------------------------------------------------------
+# Meshes and constants
+# ---------------------------------------------------------------------------
+
+def test_production_mesh_on_a_fake_group():
+    """(16, 16) over 256 fake ranks, (2, 16, 16) over 512, on the CPU;
+    any other world size still raises."""
+    got = _last_json(_run("""
+        import json
+        import torch.distributed as dist
+        from repro_torch.launch.dryrun import init_fake_world
+        from repro_torch.launch.mesh import make_production_mesh
+        out = {}
+        for n, multi in ((256, False), (512, True), (8, False), (256, True)):
+            init_fake_world(n)
+            try:
+                m = make_production_mesh(multi_pod=multi, device="cpu")
+                out[f"{n}/{multi}"] = [list(m.shape), list(m.mesh_dim_names),
+                                       m.device_type]
+            except ValueError as e:
+                out[f"{n}/{multi}"] = str(e)
+            dist.destroy_process_group()
+        print(json.dumps(out))
+    """))
+    assert got["256/False"] == [[16, 16], ["data", "model"], "cpu"]
+    assert got["512/True"] == [[2, 16, 16], ["pod", "data", "model"], "cpu"]
+    assert "256 ranks, got 8" in got["8/False"]
+    assert "512 ranks, got 256" in got["256/True"]
+
+
+def test_hardware_constants_are_h100_data_sheet():
+    """The reference's three names, with H100 SXM5 data-sheet figures:
+    dense bf16 tensor-core rate, HBM3 bandwidth, NVLink 4 per GPU."""
+    assert port_mesh.PEAK_FLOPS_BF16 == 989e12
+    assert port_mesh.HBM_BW == 3.35e12
+    assert port_mesh.ICI_BW == 900e9
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+def _leaf_meta(tree) -> dict:
+    out = {}
+    map_with_path(lambda p, t: out.__setitem__(
+        p, (tuple(t.shape), t.dtype, t.stride())), tree)
+    return out
+
+
+@pytest.mark.parametrize("arch,w8a8", [(a, False) for a in ARCH_IDS] + [
+    (a, True) for a in ARCH_IDS if get_config(a).n_experts])
+def test_params_specs_match_init_params(arch, w8a8):
+    """`params_specs` builds `init_params`'s tree on the meta device: the
+    same leaves, shapes, dtypes and strides (the W8A8 experts K-major)."""
+    cfg = dataclasses.replace(get_config(arch).smoke(), moe_w8a8=w8a8)
+    got = specs.params_specs(cfg)
+    assert all(t.is_meta for t in _leaf_meta_tensors(got))
+    assert _leaf_meta(got) == _leaf_meta(
+        decoder.init_params(torch.Generator().manual_seed(0), cfg))
+
+
+def _leaf_meta_tensors(tree) -> list:
+    out = []
+    map_with_path(lambda p, t: out.append(t), tree)
+    return out
+
+
+@pytest.mark.parametrize("shape", list(specs.SHAPES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_input_specs_equal_reference(arch, shape):
+    """`SHAPES`, `shape_case` and `applicable` are the reference's; the
+    input stand-ins have its shapes and dtypes (the decode cache its
+    tree), `pos` the cache's last position."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_config as ref_get_config
+    from repro.launch import specs as ref_specs
+    assert specs.SHAPES == ref_specs.SHAPES
+    case, ref_case = specs.shape_case(shape), ref_specs.shape_case(shape)
+    assert dataclasses.asdict(case) == dataclasses.asdict(ref_case)
+    cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+    assert specs.applicable(cfg, case) == ref_specs.applicable(ref_cfg,
+                                                                ref_case)
+    got, want = specs.input_specs(cfg, case), ref_specs.input_specs(
+        ref_cfg, ref_case)
+    assert got.keys() == want.keys()
+    for key in got:
+        if key == "pos":
+            assert got[key] == case.seq_len - 1
+            continue
+        w_flat = jax.tree_util.tree_flatten_with_path(want[key])[0]
+        g_flat = {p: t for p, t in _leaf_meta_items(got[key])}
+        assert len(g_flat) == len(w_flat)
+        for path, w in w_flat:
+            p = tuple(str(getattr(k, "key", getattr(k, "idx", "?")))
+                      for k in path)
+            g = g_flat[p]
+            assert g.is_meta and tuple(g.shape) == w.shape, (key, p)
+            assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
+
+
+def _leaf_meta_items(tree):
+    out = []
+    map_with_path(lambda p, t: out.append((p, t)), tree)
+    return out

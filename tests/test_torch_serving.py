@@ -118,7 +118,10 @@ def test_every_port_module_imports_without_jax():
               "repro_torch.models.moe",
               "repro_torch.kernels.int8_grouped_matmul.kernel",
               "repro_torch.kernels.int8_grouped_matmul.ops",
-              "repro_torch.kernels.int8_grouped_matmul.ref"):
+              "repro_torch.kernels.int8_grouped_matmul.ref",
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+              "repro_torch.launch.sweep", "repro_torch.analysis.op_stats",
+              "repro_torch.analysis.roofline"):
         assert m in mods, m
     code = ("import importlib, sys; sys.modules['jax'] = None; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
