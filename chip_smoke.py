@@ -159,17 +159,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      which with phases 11-14 keeps the card busy; each on a core of its own
      that this process keeps off meanwhile), `launch.dryrun` of
      qwen2-72b train_4k on 256 ranks and kimi-k2 decode_32k on 512, both
-     `status: ok`, their rows and roofline lines printed.
+     `status: ok`, their rows and roofline lines printed;
+ 15. the example drivers on the card, each as a subprocess with its
+     default flags but the train twin's --steps 50:
+     `examples/serve_e2e_torch.py` (AGH plans the default instance, the
+     pairs deploy as smoke engines, 24 mixed requests are routed and
+     served through the flash and decode kernels; its plan and pair
+     lines must be those this process's planner gives) and
+     `examples/train_demo_torch.py` (the ~100M f32 qwen2 config, 50
+     AdamW steps through the flash kernel and its backward, a
+     checkpoint; its loss must fall); each must exit 0 and launch its
+     kernels, whose counts the twin sets to 0 before its run and prints
+     after; tok/s, TTFT per type, the loss and both walls are printed.
 
-Phases 8-14 print their numbers as JSON lines {"risk": ...},
+Phases 8-15 print their numbers as JSON lines {"risk": ...},
 {"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...},
-{"training": ...}, {"training_recurrent": ...}, {"distribution": ...}
-and {"mixers": ...}. The line before the last is the kernel table as
-JSON; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device the run fails. To run phase 9, 10, 11, 12, 13 or 14 alone on a
-card: python -c "import chip_smoke as cs; cs.plan_and_replan()" (or
-cs.moe_and_io(), cs.train_and_check(), cs.train_recurrent(),
-cs.shard_and_pipeline(), cs.mixers_under_a_mesh()).
+{"training": ...}, {"training_recurrent": ...}, {"distribution": ...},
+{"mixers": ...} and {"examples": ...}. The line before the last is the
+kernel table as JSON; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device the run fails. To run phase 9, 10, 11, 12, 13, 14
+or 15 alone on a card: python -c "import chip_smoke as cs;
+cs.plan_and_replan()" (or cs.moe_and_io(), cs.train_and_check(),
+cs.train_recurrent(), cs.shard_and_pipeline(), cs.mixers_under_a_mesh(),
+cs.run_examples()).
 """
 from __future__ import annotations
 
@@ -3610,6 +3622,109 @@ def mixers_under_a_mesh(dev=None, seed: int = 0, dryruns=None) -> dict:
     return out
 
 
+# Phase 15: the example drivers' twins, each run as a user would run it
+# (default flags; the train twin at 50 steps), and the kernels each path
+# must launch.
+EXAMPLES = {
+    "serve_e2e_torch": ((), ("flash_attention", "decode_attention")),
+    "train_demo_torch": (("--steps", "50"),
+                         ("flash_attention", "flash_attention_bwd")),
+}
+
+
+def example_path(name: str) -> str:
+    return f"examples/{name}.py"
+
+
+def _expected_plan_lines() -> list[str]:
+    """The serve twin's [plan] pair lines as this process's planner gives
+    them (the [plan] line's wall time aside)."""
+    from repro_torch import plan
+    from repro_torch.core import default_instance
+    from repro_torch.core.bridge import to_deployment
+    inst = default_instance()
+    spec = to_deployment(inst, plan("agh", instance=inst).solution)
+    return [f"[plan] AGH in <wall>s -> {len(spec.pairs)} deployed pairs",
+            *(f"  {p.model} @ {p.tier} TP={p.tp} PP={p.pp} "
+              f"chips={p.n_chips} routing={p.routing}" for p in spec.pairs)]
+
+
+def _kernel_counts(stdout: str, name: str, kernels) -> dict:
+    line = next((ln for ln in stdout.splitlines()
+                 if ln.startswith("[kernels] ")), None)
+    if line is None:
+        fail(f"{name} printed no [kernels] line")
+    counts = {k: int(v) for k, v in (kv.split("=")
+                                     for kv in line.split()[1:])}
+    for k in kernels:
+        if counts.get(k, 0) <= 0:
+            fail(f"{example_path(name)} launched no {k} kernel: {counts}")
+    return counts
+
+
+def run_examples() -> dict:
+    """Phase 15: the example drivers' twins on the card, each in a
+    subprocess (its own counters, reset there before the run and printed
+    after). Returns the phase's numbers; fails on any check."""
+    import os
+    import re
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ckpt = ROOT / "build" / "train_demo_torch"
+    out = {}
+    try:
+        for name, (args, kernels) in EXAMPLES.items():
+            phase(f"15. {example_path(name)} on the card")
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, str(ROOT / example_path(name)), *args],
+                capture_output=True, text=True, cwd=ROOT, env=env,
+                timeout=300)
+            wall = time.perf_counter() - t0
+            for line in p.stdout.splitlines():
+                print(f"  | {line}")
+            if p.returncode:
+                fail(f"{example_path(name)} exited {p.returncode}:\n"
+                     f"{p.stderr[-4000:]}")
+            run = dict(wall_s=wall, launches=_kernel_counts(p.stdout, name,
+                                                            kernels))
+            if name == "serve_e2e_torch":
+                lines = p.stdout.splitlines()
+                at = next(i for i, ln in enumerate(lines)
+                          if ln.startswith("[plan]"))
+                want = _expected_plan_lines()
+                got = [re.sub(r"AGH in [0-9.]+s", "AGH in <wall>s",
+                              lines[at]), *lines[at + 1:at + len(want)]]
+                if got != want:
+                    fail(f"plan lines {got} are not the planner's {want}")
+                served = re.search(r"\[serve\] (\d+) requests, (\d+) "
+                                   r"tokens in ([0-9.]+)s \(([0-9.]+) tok/s",
+                                   p.stdout)
+                run.update(pairs=len(want) - 1,
+                           tokens=int(served.group(2)),
+                           serve_s=float(served.group(3)),
+                           tok_s=float(served.group(4)),
+                           ttft_p50_ms={m.group(1): float(m.group(2))
+                                        for m in re.finditer(
+                                            r"^  (\S+)\s+TTFT p50=\s*"
+                                            r"([0-9.]+)ms", p.stdout,
+                                            flags=re.M)})
+            else:
+                m = re.search(r"loss: ([0-9.]+) -> ([0-9.]+) over (\d+) "
+                              r"steps", p.stdout)
+                run.update(loss_first=float(m.group(1)),
+                           loss_last=float(m.group(2)),
+                           steps=int(m.group(3)))
+                if not run["loss_last"] < run["loss_first"]:
+                    fail(f"train twin's loss did not fall: {run}")
+            print(f"  {name}: rc 0, {wall:.1f} s, launches "
+                  f"{run['launches']}")
+            out[name] = run
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3748,6 +3863,18 @@ def main(argv=None) -> int:
                 r["launches"] += n
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"mixers": mixers}))
+
+    t0 = time.perf_counter()
+    examples = run_examples()
+    for r in rows:
+        for name, run in examples.items():
+            n = run["launches"].get(r["name"], 0)
+            if n:
+                r["launches_by_path"][example_path(name)] = n
+                r["launches"] += n
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f}s")
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"examples": examples}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

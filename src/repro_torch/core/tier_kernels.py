@@ -125,6 +125,9 @@ def phase2_keys(tx: TierInstanceTensors, items: list[tuple],
     act_d = _pad2([it[7] for it in items], R, A, 0.0, np.float64)
     act_valid = _pad2([it[8] for it in items], R, A, False, bool)
     dev = tx.device
+    # repro-lint: ignore[RPR301] -- every argument is a numpy array (f64,
+    # int64 or bool; numpy's default float is f64) and as_tensor keeps
+    # an array's dtype
     up = lambda a: torch.as_tensor(a, device=dev)
     kap0, kap1 = _phase2_keys(
         tx.m1_nm, tx.psb_data, tx.rho_d, tx.m1_delay, tx.m1_valid, tx.ebf,
@@ -230,6 +233,9 @@ def screen_sources(tx: TierInstanceTensors, groups: list[tuple],
         dyn[s], bound[s], rr2[s] = dy, bd, r2
         err_num[s], del_num[s], fthr[s] = en, dn, ft
     dev = tx.device
+    # repro-lint: ignore[RPR301] -- every argument is a numpy array (f64,
+    # int64 or bool; numpy's default float is f64) and as_tensor keeps
+    # an array's dtype
     up = lambda a: torch.as_tensor(a, device=dev)
     alive = _screen(tx.m1_delay, tx.m1_valid, tx.m1_rental, tx.m1_nm,
                     tx.ebf, tx.lpx, tx.psB_flat, tx.comp_flat, tx.Delta_T,

@@ -44,7 +44,7 @@ def _entry():
     return fn
 
 
-def _check(q, k, v, k_pos, pos):
+def _check(q, k, v, k_pos, pos: int):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA tensors, "
                          f"got {q.device}")

@@ -99,9 +99,12 @@ def test_launcher_raises_without_cuda():
 
 
 def _port_modules() -> list[str]:
+    """Every module of the port but the `__main__` of a `python -m`
+    entry point, which runs its program when imported."""
     return ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages(repro_torch.__path__,
-                                              "repro_torch.")]
+                                              "repro_torch.")
+        if not m.name.endswith(".__main__")]
 
 
 def test_every_port_module_imports_without_jax():
@@ -121,7 +124,9 @@ def test_every_port_module_imports_without_jax():
               "repro_torch.kernels.int8_grouped_matmul.ref",
               "repro_torch.launch.specs", "repro_torch.launch.dryrun",
               "repro_torch.launch.sweep", "repro_torch.analysis.op_stats",
-              "repro_torch.analysis.roofline"):
+              "repro_torch.analysis.roofline",
+              "repro_torch.analysis.lint.cli",
+              "repro_torch.analysis.lint.checkers.jit_purity"):
         assert m in mods, m
     code = ("import importlib, sys; sys.modules['jax'] = None; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
