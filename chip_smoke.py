@@ -170,18 +170,44 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      AdamW steps through the flash kernel and its backward, a
      checkpoint; its loss must fall); each must exit 0 and launch its
      kernels, whose counts the twin sets to 0 before its run and prints
-     after; tok/s, TTFT per type, the loss and both walls are printed.
+     after; tok/s, TTFT per type, the loss and both walls are printed;
+     then `examples/quickstart_torch.py` (the planner surface; AGH on the
+     lane-batched torch tier on the card, whose objective may only match
+     or beat the numpy engine's printed beside it, with some phase-2
+     device calls) and `examples/rolling_replay_torch.py --windows 16`
+     (the numpy planner's rolling replay; both policies' rows printed);
+ 16. the configurations that had run only on the CPU, at published
+     widths: 16.1 both attention kernels at the dense configs' served
+     shapes (hd 128 at G 1, 6 and 8) under phase 3's criteria and timed
+     as in phase 6; deepseek-7b whole (30 layers), qwen2-1.5b whole (28)
+     and qwen2-72b at 16 of 80 layers, each built by the launcher's
+     `build_engine` from --seed in bf16, serve phase 4's batch (launch
+     counts exact, TTFT, tok/s, peak memory), one traced batch (phase 7)
+     and phase 5's logits check at 2 layers; 16.2 the attention backward
+     at the three families' step shapes under phase 11.1's criteria and
+     timed as in phase 11.5, then llama4-scout-17b-a16e (1 layer, B 4 x T
+     2048; its run's vocabulary cut to 32,768 to fit the optimizer's
+     state, see FAMILY_TRAIN), internvl2-26b (4 of 48 layers, B 4 x 256
+     prefix rows + 1,792 tokens) and musicgen-medium (whole, B 8 x 64
+     prefix rows + 999 codebook tokens, P + T 1,063): each a 2-layer
+     full-width train step kernels vs plain under phase 11.2's criteria
+     (llama4's four runs on the f32 kernel path's expert choices, the
+     choices that differed printed), then, in a process of its own, 10
+     bf16 AdamW steps through the launcher's `train` (the loss must
+     fall; flash 2 and its backward 1 launch a layer a step; peak at most
+     72 GiB, printed beside its reckoning), step ms, tokens/s and one
+     profiled step.
 
-Phases 8-15 print their numbers as JSON lines {"risk": ...},
+Phases 8-16 print their numbers as JSON lines {"risk": ...},
 {"allocator": ...}, {"closed_loop": ...}, {"moe_io": ...},
 {"training": ...}, {"training_recurrent": ...}, {"distribution": ...},
-{"mixers": ...} and {"examples": ...}. The line before the last is the
-kernel table as JSON; the last line is {"ok": true, "device": {...}}.
-Without a CUDA device the run fails. To run phase 9, 10, 11, 12, 13, 14
-or 15 alone on a card: python -c "import chip_smoke as cs;
-cs.plan_and_replan()" (or cs.moe_and_io(), cs.train_and_check(),
-cs.train_recurrent(), cs.shard_and_pipeline(), cs.mixers_under_a_mesh(),
-cs.run_examples()).
+{"mixers": ...}, {"examples": ...} and {"unseen_configs": ...}. The line
+before the last is the kernel table as JSON; the last line is {"ok":
+true, "device": {...}}. Without a CUDA device the run fails. To run phase
+9, 10, 11, 12, 13, 14, 15 or 16 alone on a card: python -c "import
+chip_smoke as cs; cs.plan_and_replan()" (or cs.moe_and_io(),
+cs.train_and_check(), cs.train_recurrent(), cs.shard_and_pipeline(),
+cs.mixers_under_a_mesh(), cs.run_examples(), cs.unseen_configs()).
 """
 from __future__ import annotations
 
@@ -630,23 +656,39 @@ def serve_main_path(dev, seed):
 
 
 def serve_recurrent(arch, dev, seed):
-    """Phase 4 for a recurrent model: one full-width, full-depth bf16
-    engine, random weights from `seed`, serves the batch, and phase 7
-    traces one more batch, before the engine is freed for the next.
-    Returns the launch counts and the trace's summary."""
+    """Phase 4 for a recurrent model, full width and depth: see
+    `serve_and_trace`. Returns the launch counts and the trace's
+    summary."""
+    from repro_torch.configs import get_config
+
+    out = serve_and_trace(get_config(arch), arch, RECURRENT[arch][0], dev,
+                          seed, "7.")
+    return out["launches"], out["trace"]
+
+
+def serve_and_trace(cfg, label, kernels, dev, seed, tag) -> dict:
+    """Phase 4 for one more model: a bf16 engine of `cfg` (the launcher's
+    `build_engine`, random weights from `seed`) serves the batch
+    (`serve_counted`: each of `kernels` must launch), then phase 7 (`tag`
+    names the phase printed) traces one more batch, before the engine is
+    freed for the next. Returns the parameter count, the launch counts,
+    the three runs, the peak GiB allocated since the engine was built,
+    and the trace's summary."""
     import gc
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     T = max(PROMPT_LENS)
     t0 = time.perf_counter()
     engine = serve.build_engine(cfg, dev, seed, max_len=T + NEW_TOKENS,
                                 max_batch=len(PROMPT_LENS))
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(engine.params))
-    print(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"  {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, H "
+          f"{cfg.n_heads}, KV {cfg.n_kv_heads}, hd {cfg.hd}, "
           f"{n_par / 1e9:.2f} B parameters drawn in "
           f"{time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated",
@@ -654,15 +696,48 @@ def serve_recurrent(arch, dev, seed):
     serve.serve_batch(engine, serve.make_requests([16, 9], 2,
                                                   cfg.vocab_size, seed + 1))
     reqs = serve.make_requests(PROMPT_LENS, NEW_TOKENS, cfg.vocab_size, seed)
-    launches, _ = serve_counted(engine, reqs, RECURRENT[arch][0], arch, seed)
-    print(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
-          f"allocated so far")
-    phase(f"7. device trace of one served {arch} batch")
+    launches, runs = serve_counted(engine, reqs, kernels, label, seed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  peak {peak:.2f} GiB allocated since the engine was built",
+          flush=True)
+    phase(f"{tag} device trace of one served {label} batch")
     trace = trace_batch(engine, reqs)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, trace
+    return dict(params=n_par, launches=launches, runs=runs, peak_gib=peak,
+                trace=trace)
+
+
+@dataclasses.dataclass
+class DeviceRow:
+    """One kernel (or copy) name's device time as `key_averages()` gives
+    it: launches and their total µs."""
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0
+
+
+def device_rows(prof) -> list:
+    """The device events (kernels, copies, sets) a finished
+    torch.profiler run saw, summed by name, as the CUDA rows of
+    `prof.key_averages()` with device time. Read from the profiler's raw
+    results: `key_averages()` first parses every host event too, ~35 s
+    for a served batch's ~3e5 events on the H100's host, for the same
+    device rows. A torch without those raw results fails the run, so the
+    yardstick of busy ms and launches never changes unseen."""
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        fail("torch.profiler has no kineto_results to read device rows "
+             f"from (torch {torch.__version__})")
+    rows: dict = {}
+    for e in raw.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and \
+                e.duration_ns() > 0:
+            row = rows.setdefault(e.name(), DeviceRow(e.name()))
+            row.count += 1
+            row.self_device_time_total += e.duration_ns() / 1e3
+    return list(rows.values())
 
 
 def trace_batch(engine, reqs, named=None):
@@ -680,9 +755,7 @@ def trace_batch(engine, reqs, named=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         stats = serve.serve_batch(engine, fresh)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if not rows:
         print("  device trace: not measured (the profiler saw no CUDA "
@@ -744,21 +817,16 @@ def compare_paths(dev, seed, arch=ARCH, n_layers=None, prefix_rows=0,
             + (f", {nq[0]} codebooks" if nq else "") + ")")
 
     def run(params, cfg, use_kernels, routes=None, cfg_decode=None):
-        undo = _recording_routes(routes) if routes is not None else None
-        try:
-            with torch.inference_mode():
-                lg, cache = decoder.prefill(params, cfg, toks[:, :T], prefix,
-                                            max_len=prefix_rows + T + n_dec,
-                                            use_kernels=use_kernels)
-                out = [lg]
-                for t in range(T, T + n_dec):
-                    lg, cache = decoder.decode_step(
-                        params, cfg_decode or cfg, cache, toks[:, t:t + 1],
-                        prefix_rows + t, use_kernels=use_kernels)
-                    out.append(lg)
-        finally:
-            if undo:
-                undo()
+        with same_routes(routes, []), torch.inference_mode():
+            lg, cache = decoder.prefill(params, cfg, toks[:, :T], prefix,
+                                        max_len=prefix_rows + T + n_dec,
+                                        use_kernels=use_kernels)
+            out = [lg]
+            for t in range(T, T + n_dec):
+                lg, cache = decoder.decode_step(
+                    params, cfg_decode or cfg, cache, toks[:, t:t + 1],
+                    prefix_rows + t, use_kernels=use_kernels)
+                out.append(lg)
         got = torch.cat(out, dim=1)
         if not torch.isfinite(got).all():
             fail(f"non-finite {cfg.dtype} logits of {name} "
@@ -805,22 +873,6 @@ def compare_paths(dev, seed, arch=ARCH, n_layers=None, prefix_rows=0,
             "f32_checked": want is not None, "route_flips": flips}
 
 
-def _recording_routes(record: list):
-    """Keep every expert index tensor the MoE router returns, in call
-    order, until the returned function is called."""
-    from repro_torch.models import moe
-
-    route = moe.route
-
-    def recording(p, cfg, xf):
-        gate, idx = route(p, cfg, xf)
-        record.append(idx.sort(dim=-1).values)
-        return gate, idx
-
-    moe.route = recording
-    return lambda: setattr(moe, "route", route)
-
-
 def check_route_flips(run, params, cfg, name, routes_k, routes_p, B, T):
     """A failed bf16 bound on an MoE model: the two paths' attention
     differs by bf16 rounding, which can move a token across a tie in its
@@ -832,7 +884,8 @@ def check_route_flips(run, params, cfg, name, routes_k, routes_p, B, T):
     layer to the bound. Fails when no route differs, or when an agreeing
     row misses the bound."""
     L = cfg.n_layers
-    differ = [int((a != b).any(-1).sum()) for a, b in zip(routes_k, routes_p)]
+    differ = [int((~same_choices(a, b)).sum())
+              for a, b in zip(routes_k, routes_p)]
     print(f"  {name}: tokens routed differently by the two paths, per MoE "
           f"call (prefill's {L} layers, then {L} per decode step): "
           f"{differ}", flush=True)
@@ -847,7 +900,7 @@ def check_route_flips(run, params, cfg, name, routes_k, routes_p, B, T):
     n_steps = got.shape[1]
     agree = torch.ones(B, n_steps, dtype=torch.bool, device=got.device)
     for call, (a, b) in enumerate(zip(routes_k, routes_p)):
-        same = (a == b).all(-1)
+        same = same_choices(a, b)
         step = call // L
         if step == 0:          # prefill: the row of each sequence's last token
             same = same.view(B, T)[:, -1]
@@ -1178,9 +1231,7 @@ def profile_risk(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     if not rows:
         print("  device trace: not measured (the profiler saw no CUDA "
               "kernels)")
@@ -1396,9 +1447,7 @@ def _per_call(name, fn, n: int = 10) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     copies = sum(e.count for e in rows
                  if e.key.startswith(("Memcpy", "Memset")))
     out = {"wall_ms": wall_ms,
@@ -1811,7 +1860,7 @@ def _event_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def check_and_time_attention_moe_io(dev, seed):
+def check_and_time_attention_moe_io(dev, seed, cases=MOE_IO_ATTENTION):
     """Phase 3 and 6 for both attention kernels at the new configs' served
     shapes (B 8, T 999 after the prefix; decode at S = T + 32): f32 and
     bf16 under phase 3's criteria, decode over the window's slot map
@@ -1828,7 +1877,7 @@ def check_and_time_attention_moe_io(dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     out, worst = {}, {"flash_attention": (0.0, 0.0),
                       "decode_attention": (0.0, 0.0)}
-    for label, arch, P in MOE_IO_ATTENTION:
+    for label, arch, P in cases:
         cfg = get_config(arch)
         B, H, KV, hd = len(PROMPT_LENS), cfg.n_heads, cfg.n_kv_heads, cfg.hd
         W, T = cfg.sliding_window, P + max(PROMPT_LENS)
@@ -2152,6 +2201,12 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2048, 20
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
 BWD_F32_REL, BWD_BF16_ROW_REL = 2e-5, 2e-2
 STEP_F32_REL_L2 = 1e-4      # 2-layer train step, every gradient leaf
+# A leaf whose exact gradient is zero has only rounding noise to compare
+# (top-1 routing renormalises its one gate to p / p = 1: the router gets
+# nothing); as tests/test_torch_train_grads.py holds it, such a leaf (norm
+# below 1e-7 of the whole gradient's on the plain path) must stay below
+# 1e-7 of it on the kernel path too.
+ZERO_GRAD_REL = 1e-7
 TRAIN_PATH = f"{ARCH} train ({TRAIN_STEPS} steps)"
 # The backward's device ms before its Hopper redesign (the mma.sync
 # kernel, which took hd 64 and 128 only; copied from PERF.md), printed
@@ -2199,13 +2254,14 @@ def _plain_bf16_grads(q, k, v, do, q_pos, k_pos, window):
     return grads
 
 
-def check_attention_bwd(dev, seed):
-    """Phase 11.1: the forward's LSE and the backward kernel against their
-    plain versions in f32 on the same, exactly upcast inputs (q, k, v, dO
-    and the kernel's own o and LSE); in bf16 also the whole gradients'
-    relative L2 distance to the exact f32 gradient (the f32 forward's o
-    and LSE), at most twice the plain bf16 path's. Returns the worst
-    errors and the bf16 inputs of the BWD_TIMED cases."""
+def check_attention_bwd(dev, seed, cases=BWD_CASES, timed_labels=BWD_TIMED):
+    """Phase 11.1 (and 16.2 at the trained families' step shapes): the
+    forward's LSE and the backward kernel against their plain versions in
+    f32 on the same, exactly upcast inputs (q, k, v, dO and the kernel's
+    own o and LSE); in bf16 also the whole gradients' relative L2 distance
+    to the exact f32 gradient (the f32 forward's o and LSE), at most twice
+    the plain bf16 path's. Returns the worst errors and the bf16 inputs
+    of the `timed_labels` cases."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
     from repro_torch.kernels.flash_attention_bwd import kernel as bk
@@ -2216,7 +2272,7 @@ def check_attention_bwd(dev, seed):
     errs = dict(lse=0.0, f32=0.0, bf16=0.0, bf16_abs=0.0,
                 bf16_over_plain=0.0)
     timed = {}
-    for label, B, H, KV, Tq, Tk, hd, window, lost in BWD_CASES:
+    for label, B, H, KV, Tq, Tk, hd, window, lost in cases:
         q_pos = torch.arange(Tk - Tq, Tk, dtype=torch.int32, device=dev)
         if lost:
             q_pos[3] = -5
@@ -2284,7 +2340,7 @@ def check_attention_bwd(dev, seed):
                       f"{'ok' if ok else 'MISMATCH'}", flush=True)
                 if not ok:
                     fail(f"flash_attention_bwd {tag} {name} disagrees")
-            if label in BWD_TIMED:
+            if label in timed_labels:
                 timed[label] = (q, k, v, o, lse, do, q_pos, k_pos, window)
             del plain, exact, o32
         del base, want, got
@@ -2299,30 +2355,36 @@ def _grads(params, cfg, batch, use_kernels):
 
     params = as_trainable(params)
     loss = decoder.train_loss(params, cfg, batch, use_kernels=use_kernels)
-    return loss.detach(), [g.float() for g in torch.autograd.grad(
-        loss, leaves(params))]
+    return loss.detach(), list(torch.autograd.grad(loss, leaves(params)))
 
 
 def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
 def check_train_step(dev, seed, arch=ARCH, n_layers=2, B=TRAIN_B,
-                     T=TRAIN_T):
-    """Phase 11.2 (and 12.2): `arch` at full width, `n_layers` of its
-    layers (qwen2-0.5b: 2 of 24), one training batch of B x T: loss and
-    every gradient leaf, kernels vs plain, in f32 and in bf16 (the same
-    bf16-rounded weights). A config with scans also takes the f32
-    gradients with the scan kernels' outputs set to the plain path's
-    values (`scan_values_from_plain`): the backward kernels alone, every
-    leaf at STEP_F32_REL_L2 of the plain path. rwkv6's end-to-end f32
-    leaves are printed, not held: its per-head group norm divides y by
-    its rms, ~1e-3 on some rows where the median is ~1e2, so the forward
-    kernel's f32 rounding of y (within 2e-5, phase 6) moves some leaves
-    by ~1e-2."""
+                     T=TRAIN_T, prefix_rows=0):
+    """Phase 11.2 (and 12.2, 16.2): `arch` at full width, `n_layers` of
+    its layers (qwen2-0.5b: 2 of 24), one training batch of B x T tokens
+    (codebook tokens for an audio config) after `prefix_rows` prefix
+    embeddings: loss and every gradient leaf, kernels vs plain, in f32 and
+    in bf16 (the same bf16-rounded weights). A config with scans also
+    takes the f32 gradients with the scan kernels' outputs set to the
+    plain path's values (`scan_values_from_plain`): the backward kernels
+    alone, every leaf at STEP_F32_REL_L2 of the plain path. rwkv6's
+    end-to-end f32 leaves are printed, not held: its per-head group norm
+    divides y by its rms, ~1e-3 on some rows where the median is ~1e2, so
+    the forward kernel's f32 rounding of y (within 2e-5, phase 6) moves
+    some leaves by ~1e-2. An MoE config's four runs take the f32 kernel
+    path's expert choices (`same_routes`; each run's own choices that
+    differ are counted and printed): the two attentions differ by
+    rounding, which can move a token across a router tie and change a
+    whole expert's gradient with no fault in any kernel. f32 gradients
+    larger than a quarter of the card wait on the host while the plain
+    path runs (llama4-scout's 2 layers: 6.5e9 parameters)."""
     from repro_torch.configs import get_config
     from repro_torch.models import decoder
-    from repro_torch.training.data import DataConfig, PackedStream
     from repro_torch.training.train_loop import batch_on
 
     cfg16 = dataclasses.replace(get_config(arch), n_layers=n_layers)
@@ -2330,24 +2392,57 @@ def check_train_step(dev, seed, arch=ARCH, n_layers=2, B=TRAIN_B,
     params16 = decoder.init_params(
         torch.Generator(device=dev).manual_seed(seed), cfg16)
     params32 = _tree_map(lambda x: x.float(), params16)
-    batch = batch_on(PackedStream(DataConfig(
-        vocab_size=cfg16.vocab_size, seq_len=T, batch_size=B,
-        seed=0)).batch(0), dev)
+    batch = batch_on(PrefixStream(cfg16, B, prefix_rows, T).batch(0), dev)
     names = [n for n, _ in sorted(_named(params16))]
-    lk, gk = _grads(params32, cfg32, batch, True)
-    lp, gp = _grads(params32, cfg32, batch, False)
+    routes, logits = ([], []) if cfg16.n_experts else (None, None)
+    flips = {}
+
+    def grads(params, cfg, use_kernels, label):
+        with same_routes(routes, flips.setdefault(label, []), logits):
+            return _grads(params, cfg, batch, use_kernels)
+
+    lk, gk = grads(params32, cfg32, True, "f32 kernels")
+    if routes is not None:
+        from repro_torch.models import moe
+        flips.pop("f32 kernels")
+        balance = [moe.load_balance_loss(lg, idx, cfg16.n_experts).item()
+                   for lg, idx in zip(logits, routes, strict=True)]
+        logits = None
+    f32_bytes = sum(g.numel() * 4 for g in gk)
+    on_host = f32_bytes > torch.cuda.get_device_properties(
+        dev).total_memory / 4
+    if on_host:
+        gk = [g.cpu() for g in gk]
+        torch.cuda.empty_cache()
+    lp, gp = grads(params32, cfg32, False, "f32 plain")
+    isolate = cfg16.token_mixer in ("mamba2", "rwkv6")
+    if not isolate:         # the f32 weights' last use
+        del params32
+        torch.cuda.empty_cache()
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
-    worst = max((_rel_l2(a, b), n) for n, a, b in zip(names, gk, gp))
+    total = torch.stack([b.float().norm() for b in gp]).norm().item()
+    zero = {n: ZERO_GRAD_REL * total for n, b in zip(names, gp)
+            if b.norm().item() < ZERO_GRAD_REL * total}
+    worst = max((_rel_l2(a.to(dev), b), n)
+                for n, a, b in zip(names, gk, gp) if n not in zero)
+    zero_k = {n: a.float().norm().item() for n, a in zip(names, gk)
+              if n in zero}
     held = cfg16.token_mixer != "rwkv6"
-    ok = loss_rel <= 1e-5 and (worst[0] <= STEP_F32_REL_L2 or not held)
+    ok = (loss_rel <= 1e-5 and (worst[0] <= STEP_F32_REL_L2 or not held)
+          and all(v < zero[n] for n, v in zero_k.items()))
     isolated = None
-    if cfg16.token_mixer in ("mamba2", "rwkv6"):
+    if isolate:
         with scan_values_from_plain():
             _, gh = _grads(params32, cfg32, batch, True)
-        isolated = max((_rel_l2(a, b), n) for n, a, b in zip(names, gh, gp))
+        isolated = max((_rel_l2(a, b), n) for n, a, b in zip(names, gh, gp)
+                       if n not in zero)
         ok = ok and isolated[0] <= STEP_F32_REL_L2
-        del gh
-    print(f"  f32 {arch} ({n_layers} layers) train step B={B} T={T}, "
+        del gh, params32
+    where = (f" B={B} T={T}" + (f" after {prefix_rows} prefix rows"
+                                if prefix_rows else "")
+             + (f", {cfg16.n_codebooks} codebooks" if cfg16.n_codebooks
+                else ""))
+    print(f"  f32 {arch} ({n_layers} layers) train step{where}, "
           f"kernels vs plain: loss {lk.item():.6f} vs {lp.item():.6f} "
           f"(rel {loss_rel:.2e}, tol 1e-05); worst gradient leaf "
           f"{worst[1]} rel L2 {worst[0]:.3e} "
@@ -2356,21 +2451,50 @@ def check_train_step(dev, seed, arch=ARCH, n_layers=2, B=TRAIN_B,
              f"; the backward kernels on the plain path's scan values: "
              f"worst leaf {isolated[1]} rel L2 {isolated[0]:.3e} (tol "
              f"{STEP_F32_REL_L2:g})")
+          + (f"; the kernel path's f32 gradients ({f32_bytes / 2 ** 30:.1f}"
+             f" GiB) held on the host" if on_host else "")
+          + (f"; leaves whose exact gradient is zero, their norm on the "
+             f"kernel path (tol {ZERO_GRAD_REL:g} x the whole gradient's "
+             f"{total:.3e}): {zero_k}" if zero else "")
           + f" {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail("the f32 train step's kernels and plain paths disagree")
     # bf16: the f32 gradient of the same bf16-rounded weights (the plain
-    # path's, just computed) is the truth.
+    # path's, just computed) is the truth. Each path's distances to it
+    # are taken before the other path runs: one bf16 gradient at a time.
     del gk
+    torch.cuda.empty_cache()
     lt, gt = lp, gp
-    l16k, g16k = _grads(params16, cfg16, batch, True)
-    l16p, g16p = _grads(params16, cfg16, batch, False)
+
+    def to_truth(label, use_kernels):
+        loss, g16 = grads(params16, cfg16, use_kernels, label)
+        rel = {n: a.float().norm().item() if n in zero else _rel_l2(a, t)
+               for n, a, t in zip(names, g16, gt)}
+        del g16
+        torch.cuda.empty_cache()
+        return loss, rel
+
+    l16k, rel_k = to_truth("bf16 kernels", True)
+    l16p, rel_p = to_truth("bf16 plain", False)
     out = {"f32_loss_rel": loss_rel, "f32_worst_leaf_rel_l2": worst[0],
            "f32_worst_leaf": worst[1], "f32_leaves_held": held,
            "f32_bwd_kernels_on_plain_values": isolated, "bf16_leaves": {}}
+    if routes is not None:
+        out.update(moe_calls=len(routes), tokens_routed_otherwise=flips,
+                   load_balance_loss=balance)
+        print(f"  {arch}: the four runs take the f32 kernel path's expert "
+              f"choices ({len(routes)} router calls: forward and remat; "
+              f"switch load-balance loss {[round(x, 4) for x in balance]}); "
+              f"tokens whose own choice differed, per call: {flips}",
+              flush=True)
     bad = []
-    for n, a, b, t in zip(names, g16k, g16p, gt):
-        rk, rp = _rel_l2(a, t), _rel_l2(b, t)
+    for n in names:
+        if n in zero:
+            out.setdefault("bf16_zero_leaves", {})[n] = rel_k[n]
+            if rel_k[n] >= zero[n]:
+                bad.append(n)
+            continue
+        rk, rp = rel_k[n], rel_p[n]
         out["bf16_leaves"][n] = (rk, rp)
         if rk > 2 * rp + E2E_TOL:
             bad.append(n)
@@ -2380,12 +2504,80 @@ def check_train_step(dev, seed, arch=ARCH, n_layers=2, B=TRAIN_B,
           f"{lt.item():.5f}; worst leaf {worst16[0]}: rel L2 to the f32 "
           f"gradient kernels {worst16[1][0]:.3e}, plain "
           f"{worst16[1][1]:.3e} (tol 2x plain + {E2E_TOL:g}) "
-          f"{'ok' if not bad else 'MISMATCH ' + str(bad)}", flush=True)
+          + (f"; leaves whose exact gradient is zero, norm on the kernel "
+             f"path {out['bf16_zero_leaves']} (tol {ZERO_GRAD_REL:g} x "
+             f"{total:.3e}) " if zero else "")
+          + f"{'ok' if not bad else 'MISMATCH ' + str(bad)}", flush=True)
     if bad:
         fail(f"bf16 train-step gradients too far from f32: {bad}")
-    del params16, params32, g16k, g16p, gt, gp
+    out["f32_zero_leaves"] = zero_k
+    del params16, gt, gp
     torch.cuda.empty_cache()
     return out
+
+
+class PrefixStream:
+    """`PackedStream` batches of B x T tokens (B x T x n_codebooks for an
+    audio config), seed 0, each with P prefix embeddings [B, P, d_model]
+    (the VLM's image rows, the audio model's conditioning) drawn from
+    (seed, step) when P > 0: the training batches of a prefix config."""
+
+    def __init__(self, cfg, B, P, T, seed=0):
+        from repro_torch.training.data import DataConfig, PackedStream
+        self.tokens = PackedStream(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=T, batch_size=B,
+            n_codebooks=cfg.n_codebooks, seed=seed))
+        self.prefix, self.seed = (B, P, cfg.d_model), seed
+        self.B, self.P, self.T = B, P, T
+
+    def batch(self, step: int) -> dict:
+        out = self.tokens.batch(step)
+        if self.prefix[1]:
+            out["prefix"] = np.random.default_rng(
+                (self.seed, step, 1)).standard_normal(self.prefix,
+                                                      dtype=np.float32)
+        return out
+
+
+def same_choices(a, b):
+    """Per token, whether two [N, k] expert choices pick the same set."""
+    return (a.sort(dim=-1).values == b.sort(dim=-1).values).all(-1)
+
+
+@contextlib.contextmanager
+def same_routes(record, differ, logits=None):
+    """The MoE router's expert choices, fixed across runs: with `record`
+    an empty list, `moe.route` runs unchanged and each call appends its
+    expert choices to `record` (and, given a list `logits`, its router
+    logits, detached, for the load-balance loss); with `record` filled,
+    the calls take its choices in call order (gates: this run's router
+    probabilities at those experts, renormalised, as `moe.route` computes
+    them) and `differ` gets, per call, the count of tokens whose own
+    choice differs. `record` None: no MoE, nothing changes."""
+    if record is None:
+        yield
+        return
+    from repro_torch.models import moe
+
+    route, replay, calls = moe.route, bool(record), iter(list(record))
+
+    def fixed(p, cfg, xf):
+        gate, idx = route(p, cfg, xf)
+        if not replay:
+            record.append(idx)
+            if logits is not None:
+                logits.append((xf.float() @ p["router"]).detach())
+            return gate, idx
+        want = next(calls)
+        differ.append(int((~same_choices(idx, want)).sum()))
+        g = torch.softmax(xf.float() @ p["router"], dim=-1).gather(-1, want)
+        return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want
+
+    moe.route = fixed
+    try:
+        yield
+    finally:
+        moe.route = route
 
 
 @contextlib.contextmanager
@@ -2463,9 +2655,7 @@ def profile_step(step_fn, params, opt_state, batch):
         float(out[2]["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
     del out
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     if not rows:
         print("  device trace: not measured (the profiler saw no CUDA "
               "kernels)")
@@ -2599,6 +2789,17 @@ def time_attention_bwd(timed):
     yardstick the port never calls); at the training shape also the
     forward with and without its LSE output. Returns the training
     shape's numbers with every shape's under "by_shape"."""
+    rows = time_attention_bwd_rows(timed)
+    main = dict(rows["train"])
+    main["by_shape"] = [{k: v for k, v in r.items()
+                         if k not in ("fwd_ms", "fwd_with_lse_ms")}
+                        for r in rows.values()]
+    return main
+
+
+def time_attention_bwd_rows(timed) -> dict:
+    """The backward's times at each shape of `timed` ({label: inputs}),
+    by label (see `time_attention_bwd`)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention_bwd import kernel as bk
     from repro_torch.kernels.flash_attention_bwd.ref import \
@@ -2632,9 +2833,11 @@ def time_attention_bwd(timed):
                    shape=f"B={B} H={H} KV={k.shape[1]} T={T} hd={hd} "
                          f"bfloat16 causal"
                          + (f" window={window}" if window else ""))
+        before = (f"; before the redesign, from PERF.md: "
+                  f"{BWD_BEFORE_MS[label]}" if label in BWD_BEFORE_MS
+                  else "")
         line = (f"  flash_attention_bwd [{row['shape']}]: {ms:.4f} ms "
-                f"(eager {eager:.4f}; before the redesign, from PERF.md: "
-                f"{BWD_BEFORE_MS.get(label, 'n/a')}), bound {b:.4f} ms ({by}; "
+                f"(eager {eager:.4f}{before}), bound {b:.4f} ms ({by}; "
                 f"{100 * b / ms:.1f}% of it), "
                 f"plain {plain:.2f} ms, SDPA backward {lib:.4f} ms")
         if label == "train":
@@ -2647,11 +2850,7 @@ def time_attention_bwd(timed):
         print(line, flush=True)
         rows[label] = row
         del sets
-    main = dict(rows["train"])
-    main["by_shape"] = [{k: v for k, v in r.items()
-                         if k not in ("fwd_ms", "fwd_with_lse_ms")}
-                        for r in rows.values()]
-    return main
+    return rows
 
 
 def train_and_check(dev=None, seed: int = 0) -> dict:
@@ -2829,27 +3028,87 @@ def check_scan_bwd(dev, seed):
     return errs, timed
 
 
-def train_recurrent_on_card(arch, dev, seed):
-    """Phase 12.3: `arch` at published widths and phase 5's depth, bf16,
-    trains RECURRENT_STEPS steps of PackedStream(vocab, 2048, 8, seed 0)
-    through the launcher's `train`, with exact launch counts per step of
-    every kernel of its path, step times, peak memory and one profiled
+def train_counted(cfg, opt, stream, steps, per_step, label, dev,
+                  seed) -> dict:
+    """`steps` bf16 steps of `cfg` on a PrefixStream's batches through the
+    launcher's `train` (phases 12.3 and 16.2): launches a step exactly
+    `per_step` of each kernel of the path and none of any other, the loss
+    must fall; step times, peak memory, the largest leaf and one profiled
     step."""
     import gc
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.decoder import _hybrid_shape
-    from repro_torch.training.data import DataConfig, PackedStream
-    from repro_torch.training.optimizer import AdamWConfig, leaves
+    from repro_torch.training.optimizer import leaves
     from repro_torch.training.train_loop import batch_on, make_train_step, \
         train
 
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, hist, state = train(cfg, opt, stream, steps, rng=gen,
+                                log_every=1, device=dev, return_state=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    launches = {name: op.launches for name, op in ops.items()}
+    losses = [h["loss"] for h in hist]
+    ms = _step_ms(hist)
+    med = float(np.median(ms[2:]))
+    n_par = sum(t.numel() for t in leaves(params))
+    largest = max(t.numel() for t in leaves(params))
+    B, P, T = stream.B, stream.P, stream.T
+    print(f"  {label}: {n_par / 1e9:.3f} B parameters, bf16, vocabulary "
+          f"{cfg.vocab_size}; {steps} steps of B={B} x "
+          + (f"(P={P} + T={T})" if P else f"T={T}")
+          + f": loss {losses[0]:.4f} -> {losses[-1]:.4f}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"  step ms {[round(x, 1) for x in ms]}; median of steps 3-"
+          f"{steps} {med:.1f} ms, {B * T / med * 1e3:.0f} tokens/s"
+          + (" (B x T, the prefix rows not counted)" if P else "")
+          + f"; peak {peak:.2f} GiB allocated ({reserved:.2f} reserved); "
+          f"launches {launches}",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            fail(f"{label}: {name} launched {launches[name]} times in "
+                 f"{steps} steps, want {n} a step")
+    extra = {k: v for k, v in launches.items() if v and k not in per_step}
+    if extra:
+        fail(f"{label}: kernels off the training path launched: {extra}")
+    print(f"  launches per step as expected: {per_step}", flush=True)
+    trace = profile_step(make_train_step(cfg, opt), params, state,
+                         batch_on(stream.batch(steps), dev))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, layers=cfg.n_layers, params_b=n_par / 1e9,
+                largest_leaf_b=largest / 1e9, vocab_size=cfg.vocab_size,
+                batch=B, prefix_rows=P, seq=T, steps=steps, losses=losses,
+                step_ms=ms, median_step_ms=med,
+                tokens_per_s=B * T / med * 1e3, peak_gib=peak,
+                peak_reserved_gib=reserved, launches=launches,
+                launches_per_step=per_step, trace=trace)
+
+
+def train_recurrent_on_card(arch, dev, seed):
+    """Phase 12.3: `arch` at published widths and phase 5's depth, bf16,
+    trains RECURRENT_STEPS steps of PackedStream(vocab, 2048, 8, seed 0)
+    through the launcher's `train` (`train_counted`), with exact launch
+    counts per step of every kernel of its path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import _hybrid_shape
+    from repro_torch.training.optimizer import AdamWConfig
+
     cfg = dataclasses.replace(get_config(arch),
                               n_layers=RECURRENT_TRAIN[arch])
-    opt = AdamWConfig(**TRAIN_OPT)
-    stream = PackedStream(DataConfig(vocab_size=cfg.vocab_size,
-                                     seq_len=TRAIN_T, batch_size=TRAIN_B,
-                                     seed=0))
     # Per step: each layer's scan runs forward twice under remat (the
     # hybrid's tail layers once) and backward once; the hybrid's shared
     # attention once per super-block, likewise.
@@ -2863,55 +3122,11 @@ def train_recurrent_on_card(arch, dev, seed):
     else:
         per_step = {"rwkv6_wkv": r * cfg.n_layers,
                     "rwkv6_wkv_bwd": cfg.n_layers}
-    ops = kernel_ops()
-    for op in ops.values():
-        op.launches = 0
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params, hist, state = train(cfg, opt, stream, RECURRENT_STEPS, rng=gen,
-                                log_every=1, device=dev, return_state=True)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {name: op.launches for name, op in ops.items()}
-    losses = [h["loss"] for h in hist]
-    ms = _step_ms(hist)
-    med = float(np.median(ms[2:]))
-    n_par = sum(t.numel() for t in leaves(params))
-    print(f"  {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers, "
-          f"{n_par / 1e9:.3f} B parameters, bf16) {RECURRENT_STEPS} steps "
-          f"of B={TRAIN_B} T={TRAIN_T}: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; losses {[round(x, 4) for x in losses]}",
-          flush=True)
-    print(f"  step ms {[round(x, 1) for x in ms]}; median of steps 3-"
-          f"{RECURRENT_STEPS} {med:.1f} ms, "
-          f"{TRAIN_B * TRAIN_T / med * 1e3:.0f} tokens/s; peak {peak:.2f} "
-          f"GiB allocated; launches {launches}", flush=True)
-    if not all(np.isfinite(losses)):
-        fail(f"{arch}: non-finite losses {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
-    for name, n in per_step.items():
-        if launches[name] != n * RECURRENT_STEPS:
-            fail(f"{arch}: {name} launched {launches[name]} times in "
-                 f"{RECURRENT_STEPS} steps, want {n} a step")
-    extra = {k: v for k, v in launches.items() if v and k not in per_step}
-    if extra:
-        fail(f"{arch}: kernels off the training path launched: {extra}")
-    print(f"  launches per step as expected: {per_step}", flush=True)
-    trace = profile_step(make_train_step(cfg, opt), params, state,
-                         batch_on(stream.batch(RECURRENT_STEPS), dev))
-    result = dict(config=cfg.name, layers=cfg.n_layers, params_b=n_par / 1e9,
-                  batch=TRAIN_B, seq=TRAIN_T, steps=RECURRENT_STEPS,
-                  losses=losses, step_ms=ms, median_step_ms=med,
-                  tokens_per_s=TRAIN_B * TRAIN_T / med * 1e3, peak_gib=peak,
-                  launches=launches, launches_per_step=per_step, trace=trace)
-    del params, state
-    gc.collect()
-    torch.cuda.empty_cache()
-    return result
+    return train_counted(
+        cfg, AdamWConfig(**TRAIN_OPT), PrefixStream(cfg, TRAIN_B, 0, TRAIN_T),
+        RECURRENT_STEPS, per_step,
+        f"{arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers)",
+        dev, seed)
 
 
 # Each backward's phase-12.4 time before its Hopper redesign (the first,
@@ -3623,12 +3838,15 @@ def mixers_under_a_mesh(dev=None, seed: int = 0, dryruns=None) -> dict:
 
 
 # Phase 15: the example drivers' twins, each run as a user would run it
-# (default flags; the train twin at 50 steps), and the kernels each path
-# must launch.
+# (default flags; the train twin at 50 steps, the rolling replay at the
+# reference CI's 16 windows), and the kernels each path must launch (the
+# quickstart's torch tier and the numpy replay launch none of them).
 EXAMPLES = {
     "serve_e2e_torch": ((), ("flash_attention", "decode_attention")),
     "train_demo_torch": (("--steps", "50"),
                          ("flash_attention", "flash_attention_bwd")),
+    "quickstart_torch": ((), ()),
+    "rolling_replay_torch": (("--windows", "16"), ()),
 }
 
 
@@ -3662,6 +3880,41 @@ def _kernel_counts(stdout: str, name: str, kernels) -> dict:
     return counts
 
 
+def _quickstart_numbers(stdout: str) -> dict:
+    """The quickstart twin's AGH objective on the numpy engine and on the
+    torch tier (on the card), which may only match or beat it, and the
+    tier's device calls, which must be some."""
+    import re
+    numpy_obj = float(re.search(r"^agh: solved in \d+ ms, objective "
+                                r"\$([0-9.]+)", stdout, flags=re.M).group(1))
+    m = re.search(r"^agh on engine='torch': \$([0-9.]+) in (\d+) ms \((\d+)"
+                  r" orderings batched, (\d+) phase-2 device calls\)",
+                  stdout, flags=re.M)
+    if m is None:
+        fail("examples/quickstart_torch.py printed no torch-tier line")
+    out = dict(numpy_objective=numpy_obj, torch_objective=float(m.group(1)),
+               torch_ms=int(m.group(2)), orderings=int(m.group(3)),
+               device_calls_phase2=int(m.group(4)))
+    if out["torch_objective"] > numpy_obj or not out["device_calls_phase2"]:
+        fail(f"the quickstart's torch tier: {out}")
+    return out
+
+
+def _replay_numbers(stdout: str) -> dict:
+    """The rolling replay's two policies (mean and total cost a window,
+    violations, replans) and the session's plans."""
+    import re
+    rows = {m.group(1): dict(mean=float(m.group(2)), total=float(m.group(3)),
+                             viol_pct=float(m.group(4)),
+                             replans=int(m.group(5)))
+            for m in re.finditer(r"^(AGH-\S+)\s+([0-9.]+)\s+([0-9.]+)\s+"
+                                 r"([0-9.]+)%\s+(\d+)$", stdout, flags=re.M)}
+    if set(rows) != {"AGH-static", "AGH-5min"} or \
+            "trace: 16 windows" not in stdout:
+        fail(f"examples/rolling_replay_torch.py printed {rows}")
+    return rows
+
+
 def run_examples() -> dict:
     """Phase 15: the example drivers' twins on the card, each in a
     subprocess (its own counters, reset there before the run and printed
@@ -3686,9 +3939,13 @@ def run_examples() -> dict:
             if p.returncode:
                 fail(f"{example_path(name)} exited {p.returncode}:\n"
                      f"{p.stderr[-4000:]}")
-            run = dict(wall_s=wall, launches=_kernel_counts(p.stdout, name,
-                                                            kernels))
-            if name == "serve_e2e_torch":
+            run = dict(wall_s=wall, launches=_kernel_counts(
+                p.stdout, name, kernels) if kernels else {})
+            if name == "quickstart_torch":
+                run.update(_quickstart_numbers(p.stdout))
+            elif name == "rolling_replay_torch":
+                run.update(_replay_numbers(p.stdout))
+            elif name == "serve_e2e_torch":
                 lines = p.stdout.splitlines()
                 at = next(i for i, ln in enumerate(lines)
                           if ln.startswith("[plan]"))
@@ -3709,7 +3966,7 @@ def run_examples() -> dict:
                                             r"^  (\S+)\s+TTFT p50=\s*"
                                             r"([0-9.]+)ms", p.stdout,
                                             flags=re.M)})
-            else:
+            elif name == "train_demo_torch":
                 m = re.search(r"loss: ([0-9.]+) -> ([0-9.]+) over (\d+) "
                               r"steps", p.stdout)
                 run.update(loss_first=float(m.group(1)),
@@ -3723,6 +3980,245 @@ def run_examples() -> dict:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     return out
+
+
+# Phase 16: the configurations that had run their paths only on the CPU,
+# at published widths. 16.1 serves the three dense ones through the
+# launcher's engine (phase 4's batch, phases 5 and 7 for each); depth cut
+# where the weights would not fit beside the cache: None = whole.
+DENSE_SERVED = {"deepseek-7b": None, "qwen2-1.5b": None, "qwen2-72b": 16}
+DENSE_LOGITS_LAYERS = 2
+# Both attention kernels at their served shapes: hd 128 at G 1 (deepseek's
+# MHA), G 6 and G 8, no window.
+DENSE_ATTENTION = tuple((arch, arch, 0) for arch in DENSE_SERVED)
+# 16.2 trains the MoE, prefix and codebook families, 10 steps each through
+# the launcher's `train`, each in a process of its own (`family_steps`):
+# its peak is then the configuration's, not the allocator history's of
+# 15 phases. (depth, B, prefix rows, T tokens after them, the vocabulary;
+# None = published). AdamW as the port has it holds, at the step's
+# update, the old and new f32 moments, the bf16 weights, their gradients
+# and the new weights (22 B a parameter), plus ~28 B an element of the
+# leaf being updated: 22 n + 28 x the largest leaf, measured within 5 %
+# on the CPU (live tensor bytes of one step). llama4-scout's one
+# full-width layer alone needs 2.2e9 x 22 + 0.67e9 x 28 bytes = 67 GB;
+# its 202,048-word embedding and head would add 2.07e9 x 22 bytes and
+# raise the largest leaf to 1.03e9: no depth or batch fits 72 GiB, so its
+# run cuts the vocabulary to 32,768 (the layer stays at published width;
+# 16.2's gradient check keeps all 202,048 words). internvl2-26b at 4 of
+# 48 layers (6 would need 87 GiB reckoned; 4 take 65.5 GiB). The process
+# runs with the allocator's expandable segments: with its fixed segments
+# the per-leaf updates of 1.5 GiB leaves left ~10.5 GiB of the reserved
+# memory free but in pieces, and internvl2-26b's 4 layers ran out of the
+# card at 64 GiB allocated.
+FAMILY_TRAIN = {
+    "llama4-scout-17b-a16e": (1, 4, 0, 2048, 32_768),
+    "internvl2-26b": (4, 4, 256, 1792, None),
+    "musicgen-medium": (None, 8, 64, 999, None),
+}
+FAMILY_STEPS = 10
+FAMILY_CHECK_LAYERS = 2
+FAMILY_PEAK_GIB = 72.0
+# The attention backward at each family's step shape: (label, B, H, KV,
+# Tq, Tk, hd, window, a row with no admissible key); all three timed.
+FAMILY_BWD = [("llama4-scout step", 4, 40, 8, 2048, 2048, 128, 8192, False),
+              ("internvl2-26b step", 4, 48, 8, 2048, 2048, 128, 0, False),
+              ("musicgen-medium step", 8, 24, 24, 1063, 1063, 64, 0,
+               False)]
+
+
+def family_path(arch: str) -> str:
+    n_layers, B, P, T, vocab = FAMILY_TRAIN[arch]
+    return (f"{arch} train ({FAMILY_STEPS} steps" + (
+        f", {n_layers} layer{'s' if n_layers > 1 else ''}" if n_layers
+        else "") + (f", vocabulary {vocab}" if vocab else "") + ")")
+
+
+def serve_dense(arch, dev, seed) -> dict:
+    """Phase 16.1 for one dense config: phases 4 and 7 on a full-width
+    bf16 engine (`serve_and_trace`; flash and decode launch counts
+    exact), then phase 5's logits check at DENSE_LOGITS_LAYERS layers."""
+    from repro_torch.configs import get_config
+
+    n_layers = DENSE_SERVED[arch]
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    label = arch + (f" ({n_layers} of {get_config(arch).n_layers} layers)"
+                    if n_layers else "")
+    phase(f"16.1 serve {label}")
+    t0 = time.perf_counter()
+    run = serve_and_trace(cfg, label, ("flash_attention",
+                                       "decode_attention"), dev, seed,
+                          "16.1")
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
+    if {k: run["launches"][k] for k in want} != want:
+        fail(f"{label}: launches {run['launches']}, want {want}")
+    walls = {"serve_and_trace": time.perf_counter() - t0}
+    phase(f"16.1 {arch} logits at {DENSE_LOGITS_LAYERS} layers, kernels "
+          f"vs plain (phase 5)")
+    t0 = time.perf_counter()
+    logits = compare_paths(dev, seed, arch, DENSE_LOGITS_LAYERS)
+    walls["logits"] = time.perf_counter() - t0
+    print(f"  walls s {walls}", flush=True)
+    runs = run["runs"]
+    return dict(path=f"{label} served", config=arch, walls_s=walls,
+                layers=cfg.n_layers, params_b=run["params"] / 1e9,
+                launches=run["launches"],
+                ttft_ms=[r["ttft_s"] * 1e3 for r in runs],
+                tok_per_s=[r["tok_per_s"] for r in runs],
+                wall_s=[r["wall_s"] for r in runs], peak_gib=run["peak_gib"],
+                trace=run["trace"], logits=logits)
+
+
+def train_family(arch, dev, seed) -> dict:
+    """Phase 16.2 for one family: every gradient leaf kernels vs plain at
+    FAMILY_CHECK_LAYERS layers, full width (phase 11.2's criteria), then
+    the FAMILY_STEPS steps in a fresh process (`family_steps`; the
+    allocator's expandable segments on, see FAMILY_TRAIN), whose output
+    is printed here and whose numbers it returns."""
+    import gc
+    import os
+
+    phase(f"16.2 {arch}: a {FAMILY_CHECK_LAYERS}-layer full-width train "
+          f"step, kernels vs plain")
+    _, B, P, T, _ = FAMILY_TRAIN[arch]
+    t0 = time.perf_counter()
+    check = check_train_step(dev, seed, arch, FAMILY_CHECK_LAYERS, B, T, P)
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls = {"check": time.perf_counter() - t0}
+    phase(f"16.2 {family_path(arch)}, in a process of its own")
+    print(f"  this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
+          f" GiB of the card's memory meanwhile", flush=True)
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke as cs; "
+             f"cs.family_steps({arch!r}, {seed})"], capture_output=True,
+            text=True, cwd=ROOT, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    except subprocess.TimeoutExpired:
+        fail(f"{arch}: the training process ran past 600 s")
+    lines = p.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if p.returncode:
+        fail(f"{arch}: the training process exited {p.returncode}:\n"
+             f"{(lines[-1:] or [''])[0]}\n{p.stderr[-4000:]}")
+    run = json.loads(lines[-1])["family_steps"]
+    walls["process"] = time.perf_counter() - t0
+    run["walls_s"] = dict(walls, **run["walls_s"])
+    print(f"  walls s {run['walls_s']}", flush=True)
+    run.update(path=family_path(arch), train_step_check=check)
+    return run
+
+
+def family_steps(arch, seed: int = 0) -> None:
+    """Phase 16.2's training run of one family, the body of its own
+    process: FAMILY_STEPS bf16 steps through the launcher's `train` at
+    its FAMILY_TRAIN shape (`train_counted`: the loss must fall, exact
+    flash launches a step), peak memory at most FAMILY_PEAK_GIB beside
+    its reckoning. Prints its numbers as the last line, {"family_steps":
+    ...}."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.optimizer import AdamWConfig
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    n_layers, B, P, T, vocab = FAMILY_TRAIN[arch]
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=n_layers or base.n_layers,
+                              vocab_size=vocab or base.vocab_size)
+    r = 2 if cfg.remat else 1
+    run = train_counted(
+        cfg, AdamWConfig(**dict(TRAIN_OPT, total_steps=FAMILY_STEPS)),
+        PrefixStream(cfg, B, P, T), FAMILY_STEPS,
+        {"flash_attention": r * cfg.n_layers,
+         "flash_attention_bwd": cfg.n_layers},
+        f"{arch} ({cfg.n_layers} of {base.n_layers} layers)", dev, seed)
+    reckoned = (22 * run["params_b"] + 28 * run["largest_leaf_b"]) * 1e9
+    run["reckoned_peak_gib"] = reckoned / 2 ** 30
+    print(f"  peak {run['peak_gib']:.2f} GiB allocated, reckoned "
+          f"{run['reckoned_peak_gib']:.2f} (22 B a parameter + 28 B an "
+          f"element of the largest leaf, {run['largest_leaf_b']:.3f} B); "
+          f"at most {FAMILY_PEAK_GIB}", flush=True)
+    if run["peak_gib"] > FAMILY_PEAK_GIB:
+        fail(f"{arch}: peak {run['peak_gib']:.2f} GiB is over "
+             f"{FAMILY_PEAK_GIB} GiB")
+    run["walls_s"] = {"train_and_trace": time.perf_counter() - t0}
+    print(json.dumps({"family_steps": run}), flush=True)
+
+
+def unseen_configs(dev=None, seed: int = 0) -> dict:
+    """Phase 16: the configurations that had run only on the CPU. To run
+    it alone: python -c "import chip_smoke as cs; cs.unseen_configs()".
+    Returns the phase's numbers; fails on any check."""
+    if dev is None:
+        if not torch.cuda.is_available():
+            fail("no CUDA device")
+        dev = torch.device("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out, walls = {}, {}
+
+    def timed_part(label, fn):
+        t = time.perf_counter()
+        got = fn()
+        walls[label] = time.perf_counter() - t
+        print(f"  {label} took {walls[label]:.1f}s", flush=True)
+        return got
+
+    phase("16.1 attention at the dense configs' served shapes (phases 3 "
+          "and 6)")
+    out["attention"], out["attention_worst"] = timed_part(
+        "attention", lambda: check_and_time_attention_moe_io(
+            dev, seed, DENSE_ATTENTION))
+    out["serving"] = {arch: timed_part(arch, lambda a=arch: serve_dense(
+        a, dev, seed)) for arch in DENSE_SERVED}
+    phase("16.2 the attention backward at the families' step shapes "
+          "(phases 11.1 and 11.5)")
+
+    def bwd():
+        errs, timed = check_attention_bwd(dev, seed, FAMILY_BWD,
+                                          [c[0] for c in FAMILY_BWD])
+        return dict(errors=errs, timed=time_attention_bwd_rows(timed))
+
+    out["attention_bwd"] = timed_part("attention_bwd", bwd)
+    torch.cuda.empty_cache()
+    out["training"] = {arch: timed_part(f"{arch} train", lambda a=arch:
+                                        train_family(a, dev, seed))
+                       for arch in FAMILY_TRAIN}
+    out["walls_s"] = walls
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 16 took {out['wall_s']:.1f}s", flush=True)
+    return out
+
+
+def merge_unseen_rows(rows, unseen) -> None:
+    """Phase 16's numbers in the kernel table: the attention rows and the
+    backward's gain the new paths' launches; their times at the new
+    shapes go under "dense" (forward, decode) and "family_steps" (the
+    backward)."""
+    runs = [*unseen["serving"].values(), *unseen["training"].values()]
+    for r in rows:
+        for run in runs:
+            n = run["launches"].get(r["name"], 0)
+            if n:
+                r["launches_by_path"][run["path"]] = n
+                r["launches"] += n
+        if r["name"] in ("flash_attention", "decode_attention"):
+            key = "flash" if r["name"].startswith("flash") else "decode"
+            r["dense"] = {label: t[key]
+                          for label, t in unseen["attention"].items()}
+        elif r["name"] == "flash_attention_bwd":
+            r["family_steps"] = unseen["attention_bwd"]["timed"]
 
 
 def main(argv=None) -> int:
@@ -3783,6 +4279,9 @@ def main(argv=None) -> int:
 
     phase(f"7. device trace of one served {ARCH} batch")
     traces[ARCH] = trace_batch(engine, reqs)
+    # the card's memory for the later phases (16.2 trains near its end)
+    del engine, reqs, main_inputs
+    torch.cuda.empty_cache()
     for arch, tr in traces.items():
         if tr:
             print(f"  {arch}: {100 * tr['busy']:.1f}% busy over a "
@@ -3875,6 +4374,11 @@ def main(argv=None) -> int:
     print(f"  phase 15 took {time.perf_counter() - t0:.1f}s")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"examples": examples}))
+
+    unseen = unseen_configs(dev, args.seed)
+    merge_unseen_rows(rows, unseen)
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"unseen_configs": unseen}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -374,10 +374,15 @@ def _train_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for what `train_loss` cannot differentiate: int8 expert
     weights, on every device and path (the reference's `jax.grad` refuses
-    integer leaves too). Every other config trains on the CPU and on CUDA;
-    on CUDA with the kernels the attention layers run the flash backward
-    kernel and the recurrent mixers (rwkv6, mamba2, the zamba2 hybrid)
-    the scans' backward kernels."""
+    integer leaves too). Every other config passes: on CUDA with the
+    kernels the attention layers run the flash backward kernel and the
+    recurrent mixers (rwkv6, mamba2, the zamba2 hybrid) the scans'
+    backward kernels. What has trained on an H100 (`chip_smoke.py`):
+    qwen2-0.5b whole, rwkv6-7b (4 layers), zamba2-7b (7), llama4-scout
+    (1 layer, its vocabulary cut to 32,768), internvl2-26b (4 layers,
+    with its prefix) and musicgen-medium whole (prefix and codebooks).
+    kimi-k2 and the dense deepseek-7b, qwen2-1.5b and qwen2-72b have
+    trained only on the CPU at smoke size."""
     if cfg.moe_w8a8:
         raise NotImplementedError(
             f"{cfg.name} with moe_w8a8: int8 expert weights are not "

@@ -247,7 +247,7 @@ def test_decode_kernel_split_extremes(dev, B, KV, G, S, hd, n_split, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,G", [(112, 1), (128, 16), (64, 7)])
+@pytest.mark.parametrize("hd,G", [(112, 1), (128, 16), (64, 7), (128, 1)])
 def test_decode_kernel_ring_and_sentinel_wide(dev, hd, G):
     """A ring cache's slot -> position map with empty (2**30) slots, and
     one where every slot is empty (uniform average over the cache)."""
@@ -656,6 +656,10 @@ def _assert_grad_matches(name, got, want, wants):
     (2, 8, 2, 300, 300, 32, 0, False),      # the smoke configs' hd 32
     (1, 4, 4, 333, 333, 112, 64, True),     # zamba2's hd 112, a lost row
     (1, 14, 2, 2048, 2048, 64, 0, False),   # the whole causal schedule
+    (1, 40, 8, 640, 640, 128, 8192, False),  # llama4-scout's heads, G 5
+    (1, 48, 8, 640, 640, 128, 0, False),    # internvl2-26b's heads, G 6
+    (2, 24, 24, 64 + 333, 64 + 333, 64, 0, False),  # musicgen, G 1: a
+    # 64-row prefix at positions 0..63 before 333 tokens, P + T ragged
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_plain(dev, B, H, KV, Tq, Tk, hd, window,

@@ -1,12 +1,16 @@
-"""The two example drivers' port twins on the CPU, as subprocesses.
+"""The four example drivers' port twins on the CPU, as subprocesses.
 
 `examples/serve_e2e_torch.py` plans, deploys and serves through
 `repro_torch`: its plan and pair lines are those of the reference's
 `examples/serve_e2e.py` on the same flags (the plan's wall time aside),
 and it prints an attainment line for each query type it served.
 `examples/train_demo_torch.py` builds the reference demo's ~100M f32
-config (the same parameter count) and its loss falls. Both refuse to run
-without a card unless `--device cpu` is given.
+config (the same parameter count) and its loss falls.
+`examples/quickstart_torch.py` prints the reference quickstart's lines
+(wall times masked), its `engine="torch"` line with the reference's
+`engine="xla"` objective. These three refuse to run without a card unless
+`--device cpu` is given. `examples/rolling_replay_torch.py` runs the numpy
+planner only and prints the reference's stdout byte for byte.
 """
 from __future__ import annotations
 
@@ -83,6 +87,49 @@ def test_serve_twin_serves_and_reports_attainment(serve_runs):
     assert "[kernels] flash_attention=0 decode_attention=0" in port
 
 
+def masked(stdout: str) -> list[str]:
+    """Lines with the solvers' wall times masked and the batched tier's
+    engine name unified (the reference calls it "xla")."""
+    out = re.sub(r"\b[0-9]+ ms\b", "<wall> ms", stdout)
+    return out.replace("engine='torch'", "engine='xla'").splitlines()
+
+
+def test_quickstart_twin_prints_the_reference_s_lines():
+    pytest.importorskip("jax")
+    port = run("quickstart_torch.py", "--device", "cpu")
+    ref = run("quickstart.py", jax=True)
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    assert masked(port.stdout) == masked(ref.stdout)
+    tier = [line for line in port.stdout.splitlines()
+            if line.startswith("agh on engine='torch': $")]
+    assert len(tier) == 1 and "unavailable" not in port.stdout
+
+
+@pytest.mark.parametrize("day", ["busy", "volatile"])
+def test_rolling_replay_twin_prints_the_reference_s_stdout(day):
+    port = run("rolling_replay_torch.py", "--windows", "16", "--day", day)
+    ref = run("rolling_replay.py", "--windows", "16", "--day", day, jax=True)
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    assert port.stdout == ref.stdout
+    assert "trace: 16 windows" in port.stdout
+
+
+def test_rolling_replay_twin_has_no_device_work():
+    """It never imports torch, so there is no device to refuse."""
+    code = ("import runpy, sys; sys.argv = ['rolling_replay_torch.py', "
+            "'--windows', '4']; runpy.run_path("
+            f"{str(EXAMPLES / 'rolling_replay_torch.py')!r}, "
+            "run_name='__main__'); assert 'torch' not in sys.modules")
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "HOME": os.environ.get("HOME", "/tmp")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "trace: 4 windows" in out.stdout
+
+
 def test_train_twin_builds_the_reference_config_and_learns(tmp_path):
     from repro.configs import get_config
     cfg = dataclasses.replace(
@@ -100,7 +147,8 @@ def test_train_twin_builds_the_reference_config_and_learns(tmp_path):
 
 
 @pytest.mark.parametrize("script", ["serve_e2e_torch.py",
-                                    "train_demo_torch.py"])
+                                    "train_demo_torch.py",
+                                    "quickstart_torch.py"])
 def test_twins_raise_without_a_card(script):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -111,7 +159,9 @@ def test_twins_raise_without_a_card(script):
 
 
 @pytest.mark.parametrize("script", ["serve_e2e_torch.py",
-                                    "train_demo_torch.py"])
+                                    "train_demo_torch.py",
+                                    "quickstart_torch.py",
+                                    "rolling_replay_torch.py"])
 def test_twins_import_neither_jax_nor_the_reference(script):
     tree = ast.parse((EXAMPLES / script).read_text())
     names = {a.name.split(".")[0] for n in ast.walk(tree)

@@ -379,6 +379,35 @@ def test_launcher_trains_on_the_cpu(capsys):
                and "grad_norm=" in ln for ln in lines)
 
 
+STEP_LINE = (r"step=\s*(\d+) loss=[0-9.]+ grad_norm=[0-9.]+ "
+             r"lr=[0-9.]+e[-+][0-9]+ wall=[0-9.]+s")
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "internvl2-26b",
+                                  "musicgen-medium"])
+def test_launcher_trains_the_moe_prefix_and_codebook_families(arch):
+    """`python -m repro_torch.launch.train --smoke --device cpu --steps 3`
+    as a user runs it: rc 0 and the lines of the reference launcher's
+    format for the steps its loop logs (step 0 and the last: log_every is
+    10 in both loops). Losses are not compared with the reference's
+    launcher: the two draw their weights separately."""
+    import re
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--device", "cpu", "--steps", "3"],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    steps = [re.fullmatch(STEP_LINE, ln) for ln in lines]
+    assert all(steps), lines
+    assert [int(m.group(1)) for m in steps] == [0, 2]
+    losses = [float(re.search(r"loss=([0-9.]+)", ln).group(1))
+              for ln in lines]
+    assert all(np.isfinite(losses))
+
+
 def test_launcher_and_loop_refuse_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
