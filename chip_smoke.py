@@ -186,8 +186,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      and phase 5's logits check at 2 layers; 16.2 the attention backward
      at the three families' step shapes under phase 11.1's criteria and
      timed as in phase 11.5, then llama4-scout-17b-a16e (1 layer, B 4 x T
-     2048; its run's vocabulary cut to 32,768 to fit the optimizer's
-     state, see FAMILY_TRAIN), internvl2-26b (4 of 48 layers, B 4 x 256
+     2048, its whole 202,048-word vocabulary: AdamW updates in place, see
+     FAMILY_TRAIN), internvl2-26b (4 of 48 layers, B 4 x 256
      prefix rows + 1,792 tokens) and musicgen-medium (whole, B 8 x 64
      prefix rows + 999 codebook tokens, P + T 1,063): each a 2-layer
      full-width train step kernels vs plain under phase 11.2's criteria
@@ -195,7 +195,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      choices that differed printed), then, in a process of its own, 10
      bf16 AdamW steps through the launcher's `train` (the loss must
      fall; flash 2 and its backward 1 launch a layer a step; peak at most
-     72 GiB, printed beside its reckoning), step ms, tokens/s and one
+     72 GiB and within 10 % of its reckoning), step ms, tokens/s and one
      profiled step.
 
 Phases 8-16 print their numbers as JSON lines {"risk": ...},
@@ -2679,7 +2679,9 @@ def train_on_card(dev, seed, ckpt_dir):
     the launcher's `train` (10 steps, a checkpoint, then 10 more from the
     live state), launch counts per step, step times, peak memory and one
     step under torch.profiler; then the step-10 checkpoint restored
-    bitwise and 3 steps from it against 3 from the live state."""
+    bitwise and 3 steps from it against 3 from the live state. The steps
+    consume their trees in place (the reference's donated buffers), so
+    the step-10 state those checks need is copied to the host first."""
     from repro_torch.configs import get_config
     from repro_torch.training import checkpoint
     from repro_torch.training.data import DataConfig, PackedStream
@@ -2702,6 +2704,8 @@ def train_on_card(dev, seed, ckpt_dir):
     p10, h1, s10 = train(cfg, opt, stream, half, rng=gen, log_every=1,
                          ckpt_path=ckpt_dir, ckpt_every=half, device=dev,
                          return_state=True)
+    live = _tree_map(lambda x: x.detach().cpu(),
+                     dict(params=p10, opt_state=s10))
     _, h2, _ = train(cfg, opt, stream, TRAIN_STEPS, log_every=1, params=p10,
                      opt_state=s10, device=dev, return_state=True)
     torch.cuda.synchronize()
@@ -2735,19 +2739,20 @@ def train_on_card(dev, seed, ckpt_dir):
                          batch_on(stream.batch(TRAIN_STEPS), dev))
 
     # Phase 11.4: the step-10 checkpoint, restored into fresh tensors.
+    del p10, s10
     saved, meta = checkpoint.restore(ckpt_dir, dev)
     if meta != dict(step=half, arch=cfg.name):
         fail(f"checkpoint meta {meta}")
-    live = dict(params=p10, opt_state=s10)
     pairs = list(zip(_named(saved), _named(live)))
     for (n1, a), (n2, b) in pairs:
-        if n1 != n2 or a.dtype != b.dtype or not torch.equal(a, b.detach()):
+        if n1 != n2 or a.dtype != b.dtype or not torch.equal(a.cpu(), b):
             fail(f"checkpoint leaf {n1} is not what was saved ({n2})")
     print(f"  checkpoint at step {half}: {len(pairs)} leaves restored bit "
           f"for bit", flush=True)
     three = dict(log_every=1, device=dev)
-    _, again = train(cfg, opt, stream, half + 3, params=p10, opt_state=s10,
-                     **three)
+    live = _tree_map(lambda x: x.to(dev), live)
+    _, again = train(cfg, opt, stream, half + 3, params=live["params"],
+                     opt_state=live["opt_state"], **three)
     _, resumed = train(cfg, opt, stream, half + 3, params=saved["params"],
                        opt_state=saved["opt_state"], **three)
     live1 = [h["loss"] for h in h2[:3]]
@@ -2770,7 +2775,7 @@ def train_on_card(dev, seed, ckpt_dir):
                                      for k in want},
                   trace=trace, resume=dict(restored=res, live=live1,
                                            live_again=live2))
-    del p10, s10, saved, live
+    del saved, live
     torch.cuda.empty_cache()
     return result
 
@@ -3995,29 +4000,26 @@ DENSE_ATTENTION = tuple((arch, arch, 0) for arch in DENSE_SERVED)
 # the launcher's `train`, each in a process of its own (`family_steps`):
 # its peak is then the configuration's, not the allocator history's of
 # 15 phases. (depth, B, prefix rows, T tokens after them, the vocabulary;
-# None = published). AdamW as the port has it holds, at the step's
-# update, the old and new f32 moments, the bf16 weights, their gradients
-# and the new weights (22 B a parameter), plus ~28 B an element of the
-# leaf being updated: 22 n + 28 x the largest leaf, measured within 5 %
-# on the CPU (live tensor bytes of one step). llama4-scout's one
-# full-width layer alone needs 2.2e9 x 22 + 0.67e9 x 28 bytes = 67 GB;
-# its 202,048-word embedding and head would add 2.07e9 x 22 bytes and
-# raise the largest leaf to 1.03e9: no depth or batch fits 72 GiB, so its
-# run cuts the vocabulary to 32,768 (the layer stays at published width;
-# 16.2's gradient check keeps all 202,048 words). internvl2-26b at 4 of
-# 48 layers (6 would need 87 GiB reckoned; 4 take 65.5 GiB). The process
-# runs with the allocator's expandable segments: with its fixed segments
-# the per-leaf updates of 1.5 GiB leaves left ~10.5 GiB of the reserved
-# memory free but in pieces, and internvl2-26b's 4 layers ran out of the
-# card at 64 GiB allocated.
+# None = published). The port's AdamW updates in place (the reference's
+# donated buffers): a step holds 12 B a parameter (bf16 weight and
+# gradient, f32 mu and nu) plus an update piece's or the global norm's
+# temporaries (`reckon_train_peak`), so llama4-scout's one full-width
+# layer trains its whole 202,048-word vocabulary (4.27e9 parameters, ~54
+# GiB reckoned; an update that built new weights and moments beside the
+# old held ~22 B a parameter, ~123 GB here). internvl2-26b at 4 of 48
+# layers. The process runs with the allocator's expandable segments:
+# with its fixed segments the per-leaf updates of 1.5 GiB leaves left
+# ~10.5 GiB of the reserved memory free but in pieces, and
+# internvl2-26b's 4 layers ran out of the card at 64 GiB allocated.
 FAMILY_TRAIN = {
-    "llama4-scout-17b-a16e": (1, 4, 0, 2048, 32_768),
+    "llama4-scout-17b-a16e": (1, 4, 0, 2048, None),
     "internvl2-26b": (4, 4, 256, 1792, None),
     "musicgen-medium": (None, 8, 64, 999, None),
 }
 FAMILY_STEPS = 10
 FAMILY_CHECK_LAYERS = 2
 FAMILY_PEAK_GIB = 72.0
+FAMILY_RECKON_TOL = 0.10    # |peak / reckoned - 1| at most
 # The attention backward at each family's step shape: (label, B, H, KV,
 # Tq, Tk, hd, window, a row with no admissible key); all three timed.
 FAMILY_BWD = [("llama4-scout step", 4, 40, 8, 2048, 2048, 128, 8192, False),
@@ -4115,12 +4117,32 @@ def train_family(arch, dev, seed) -> dict:
     return run
 
 
+def reckon_train_peak(cfg, params_b, largest_b, B, P, T) -> float:
+    """Bytes a bf16 training step of `cfg` at B x (P + T) should peak at
+    under the port's in-place AdamW: 12 B a parameter (weight and gradient
+    2 each, the f32 moments 8); the larger of the update's temporaries, 24
+    B an element of one piece (`optimizer.PIECE`, or the largest leaf
+    where smaller), and the global norm's, the f32 squares of the largest
+    leaf (4 B an element); the layer inputs remat keeps (2 B x layers x B
+    x (P + T) x d) and one CE chunk's f32 logits, their softmax and their
+    gradient (12 B x B x chunk x the vocabulary; a codebook config's heads
+    take their chunks in turn)."""
+    from repro_torch.models.layers import _pick_chunk
+    from repro_torch.training.optimizer import PIECE
+
+    largest = largest_b * 1e9
+    update = max(24 * min(PIECE, largest), 4 * largest)
+    acts = 2 * cfg.n_layers * B * (P + T) * cfg.d_model
+    ce = 12 * B * _pick_chunk(T, cfg.loss_chunk) * cfg.vocab_size
+    return 12 * params_b * 1e9 + update + acts + ce
+
+
 def family_steps(arch, seed: int = 0) -> None:
     """Phase 16.2's training run of one family, the body of its own
     process: FAMILY_STEPS bf16 steps through the launcher's `train` at
     its FAMILY_TRAIN shape (`train_counted`: the loss must fall, exact
-    flash launches a step), peak memory at most FAMILY_PEAK_GIB beside
-    its reckoning. Prints its numbers as the last line, {"family_steps":
+    flash launches a step), peak memory at most FAMILY_PEAK_GIB and
+    within FAMILY_RECKON_TOL of its reckoning. Prints its numbers as the last line, {"family_steps":
     ...}."""
     from repro_torch.configs import get_config
     from repro_torch.training.optimizer import AdamWConfig
@@ -4142,15 +4164,20 @@ def family_steps(arch, seed: int = 0) -> None:
         {"flash_attention": r * cfg.n_layers,
          "flash_attention_bwd": cfg.n_layers},
         f"{arch} ({cfg.n_layers} of {base.n_layers} layers)", dev, seed)
-    reckoned = (22 * run["params_b"] + 28 * run["largest_leaf_b"]) * 1e9
-    run["reckoned_peak_gib"] = reckoned / 2 ** 30
+    run["reckoned_peak_gib"] = reckon_train_peak(
+        cfg, run["params_b"], run["largest_leaf_b"], B, P, T) / 2 ** 30
+    ratio = run["peak_gib"] / run["reckoned_peak_gib"]
     print(f"  peak {run['peak_gib']:.2f} GiB allocated, reckoned "
-          f"{run['reckoned_peak_gib']:.2f} (22 B a parameter + 28 B an "
-          f"element of the largest leaf, {run['largest_leaf_b']:.3f} B); "
-          f"at most {FAMILY_PEAK_GIB}", flush=True)
+          f"{run['reckoned_peak_gib']:.2f} (12 B a parameter + an update "
+          f"piece or the norm's squares + remat's layer inputs + a CE "
+          f"chunk; {ratio:.3f} of it, within {FAMILY_RECKON_TOL:.0%}); at "
+          f"most {FAMILY_PEAK_GIB}", flush=True)
     if run["peak_gib"] > FAMILY_PEAK_GIB:
         fail(f"{arch}: peak {run['peak_gib']:.2f} GiB is over "
              f"{FAMILY_PEAK_GIB} GiB")
+    if abs(ratio - 1) > FAMILY_RECKON_TOL:
+        fail(f"{arch}: peak {run['peak_gib']:.2f} GiB is {ratio:.3f} of "
+             f"its reckoning")
     run["walls_s"] = {"train_and_trace": time.perf_counter() - t0}
     print(json.dumps({"family_steps": run}), flush=True)
 

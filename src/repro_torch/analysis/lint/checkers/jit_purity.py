@@ -158,7 +158,8 @@ DEVICE_PROGRAMS: tuple[DeviceProgram, ...] = (
                   ("src/repro/training/train_loop.py:40",),
                   "the train step's loss"),
     DeviceProgram("training/optimizer.py",
-                  ("apply_updates", "_update", "global_norm", "schedule"),
+                  ("apply_updates", "_update", "_pieces", "global_norm",
+                   "schedule"),
                   ("src/repro/training/train_loop.py:40",),
                   "the train step's AdamW update"),
 )

@@ -39,13 +39,29 @@ def init_fake_world(n: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
-def _step(cfg, case, mesh, opts):
-    """(the step as a thunk, its inputs) on meta DTensors over `mesh`."""
+def _copies(tree):
+    """`tree` with every tensor a new copy (a leaf that requires a
+    gradient stays one)."""
+    import torch
+    return torch.utils._pytree.tree_map(
+        lambda t: t.detach().clone().requires_grad_(t.requires_grad)
+        if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _step(cfg, case, mesh, opts, donate=True):
+    """(the step as a thunk, its inputs) on meta DTensors over `mesh`.
+    The step writes into its donated arguments, as the reference's
+    `donate_argnums`: the train step into the params and optimizer state
+    (`make_train_step`), decode into the cache (`layers._write`). With
+    `donate` False it copies them first, inside the thunk."""
     from ..models import decoder
     from ..parallel import sharding as shd
     from ..training.optimizer import AdamWConfig, init_state
     from ..training.train_loop import as_trainable, make_train_step
     from .specs import input_specs, params_specs
+
+    def own(tree):
+        return tree if donate else _copies(tree)
 
     params = shd.distribute_params(params_specs(cfg), mesh)
     inputs = input_specs(cfg, case)
@@ -53,7 +69,8 @@ def _step(cfg, case, mesh, opts):
         params = as_trainable(params)
         opt = init_state(params)
         step = make_train_step(cfg, AdamWConfig(), use_kernels=False)
-        return (lambda: step(params, opt, inputs)), (params, opt, inputs)
+        return (lambda: step(own(params), own(opt), inputs)), (params, opt,
+                                                               inputs)
     if case.kind == "prefill":
         return (lambda: decoder.prefill(
             params, cfg, inputs["tokens"], inputs.get("prefix"),
@@ -61,20 +78,22 @@ def _step(cfg, case, mesh, opts):
     cache = shd.distribute_cache(inputs["cache"], mesh,
                                  prefer_hd="kvhd" in opts)
     return (lambda: decoder.decode_step(
-        params, cfg, cache, inputs["tokens"], inputs["pos"],
+        params, cfg, own(cache), inputs["tokens"], inputs["pos"],
         use_kernels=False)), (params, cache, inputs["tokens"])
 
 
-def trace_step(cfg, case, mesh, opts: tuple[str, ...] = ()) -> dict:
+def trace_step(cfg, case, mesh, opts: tuple[str, ...] = (),
+               donate: bool = True) -> dict:
     """Run `case`'s step of `cfg` once on meta DTensors over `mesh` under
-    the op counter, the global flop counter and the memory tracker.
-    Returns dict(stats=OpStats, global_flops, memory, trace_s)."""
+    the op counter, the global flop counter and the memory tracker,
+    `donate` as `run_one`'s. Returns dict(stats=OpStats, global_flops,
+    memory, trace_s)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from ..analysis.op_stats import OpCounter, tree_bytes
 
-    run, args = _step(cfg, case, mesh, opts)
+    run, args = _step(cfg, case, mesh, opts, donate)
     counter = OpCounter()
     counter.stats.argument_bytes = tree_bytes(args)
     mem, memory = _mem_tracker(args)
@@ -135,7 +154,6 @@ def run_one(arch: str, shape: str, multi_pod: bool,
     from .mesh import make_production_mesh
     from .specs import applicable, shape_case
 
-    del donate      # the reference's buffer donation: nothing to donate
     cfg: ModelConfig = get_config(arch)
     # Beyond-paper optimization variants (§Perf): baseline has all off.
     flag_map = dict(seqshard="seq_shard_attention",
@@ -152,15 +170,15 @@ def run_one(arch: str, shape: str, multi_pod: bool,
 
     init_fake_world(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
-    return row(arch, shape, multi_pod, cfg, case, mesh, opts)
+    return row(arch, shape, multi_pod, cfg, case, mesh, opts, donate)
 
 
 def row(arch: str, shape: str, multi_pod: bool, cfg, case, mesh,
-        opts: tuple[str, ...] = ()) -> dict:
+        opts: tuple[str, ...] = (), donate: bool = True) -> dict:
     """The dry-run row of `case`'s step of `cfg` on `mesh`: the
     reference's schema, the counts of `trace_step`."""
     t0 = time.perf_counter()
-    traced = trace_step(cfg, case, mesh, tuple(opts))
+    traced = trace_step(cfg, case, mesh, tuple(opts), donate)
     stats = traced["stats"]
     return dict(
         arch=arch, shape=shape, multi_pod=multi_pod, status="ok",

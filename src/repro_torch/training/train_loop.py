@@ -2,8 +2,12 @@
 
 `make_train_step` differentiates `decoder.train_loss` with autograd (on
 CUDA through the flash-attention kernel and its backward kernel) and
-applies AdamW; parameters are leaf tensors with `requires_grad`. The loop
-reads the step's scalars back to the host only at log steps.
+applies AdamW in place; parameters are leaf tensors with `requires_grad`.
+The step consumes its parameter and optimizer trees as the reference's
+`jax.jit(..., donate_argnums=(0, 1))` consumes its donated buffers: it
+writes the new values into them, so a caller that needs a tree's old
+values after a step copies them first. The loop reads the step's
+scalars back to the host only at log steps.
 """
 from __future__ import annotations
 
@@ -21,16 +25,19 @@ from .optimizer import AdamWConfig, apply_updates, init_state, leaves, \
 
 
 def as_trainable(params: Any) -> Any:
-    """The tree with every tensor a leaf that requires a gradient."""
+    """The tree with every tensor a leaf that requires a gradient, each
+    sharing the given tensor's storage."""
     return unflatten(params, [p.detach().requires_grad_()
                               for p in leaves(params)])
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     use_kernels: bool = True) -> Callable:
-    """One step: the loss, its gradients by autograd, AdamW. `use_kernels`
-    as `decoder.train_loss` (False: the plain path, as the dry-run traces
-    on meta tensors)."""
+    """One step: the loss, its gradients by autograd, AdamW. `params`
+    (leaf tensors that require a gradient) and `opt_state` are consumed
+    as donated buffers are: the step updates them in place and returns
+    the same objects. `use_kernels` as `decoder.train_loss` (False: the
+    plain path, as the dry-run traces on meta tensors)."""
     def train_step(params: Any, opt_state: dict, batch: dict):
         loss = decoder.train_loss(params, cfg, batch, use_kernels=use_kernels)
         # a leaf the loss does not reach (zamba2's shared attention when
@@ -40,7 +47,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         params, opt_state, metrics = apply_updates(opt_cfg, params, grads,
                                                    opt_state)
         metrics["loss"] = loss.detach()
-        return as_trainable(params), opt_state, metrics
+        return params, opt_state, metrics
     return train_step
 
 
@@ -59,11 +66,15 @@ def train(cfg: ModelConfig, opt_cfg: AdamWConfig, stream, n_steps: int,
     start = `opt_state["step"]` when resuming (0 otherwise). Without
     `params`, weights are drawn by `decoder.init_params` from `rng` (a
     generator on `device`; default seed 0). Runs on CUDA unless
-    device="cpu" and raises without it. Returns (params, history), the
+    device="cpu" and raises without it. The `params` and `opt_state` it
+    is handed are consumed, as the reference's donated buffers: every
+    step writes into their storage. Returns (params, history), the
     history one dict (loss, grad_norm, lr, step, wall_s) per log step and
-    for the last step, and with `return_state` the optimizer state too;
-    with `ckpt_every`, saves dict(params, opt_state) with meta (step,
-    arch) every `ckpt_every` steps."""
+    for the last step, and with `return_state` the optimizer state too
+    (the trees updated; the params as leaves that require a gradient,
+    sharing the handed tensors' storage); with `ckpt_every`, saves
+    dict(params, opt_state) with meta (step, arch) every `ckpt_every`
+    steps."""
     dev = resolve_device(str(device))
     if params is None:
         rng = (torch.Generator(device=dev).manual_seed(0) if rng is None

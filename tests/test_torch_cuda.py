@@ -765,6 +765,89 @@ def test_kernels_without_a_backward_refuse_a_gradient(dev):
     assert grad.shape == x112.shape and torch.isfinite(grad).all()
 
 
+# -- AdamW in place ----------------------------------------------------------
+
+@pytest.mark.cuda
+def test_apply_updates_on_card_equals_cpu_in_place(dev):
+    """AdamW on a 1.68e8-element bf16 matrix (several pieces, a short last
+    one) and a small f32 vector, at step 0 inside the warm-up with no
+    clipping (the clip scale is exactly 1 on both devices): the card's
+    moments equal the CPU's bit for bit, and so do its weights but where
+    the card's f32 sqrt, within one ulp of the CPU's correctly rounded
+    one but not always equal to it (PyTorch's CUDA build), moves the
+    step's change lr x delta by ~1e-7 of itself, in at most 1e-3 of a
+    leaf's elements: a bf16 weight by at most one ulp, an f32 weight by
+    at most 1e-6 of its change plus one ulp (where the change nearly
+    cancels the weight, that is several of its ulps). They are written
+    into the tensors given, and what the update allocates beyond the
+    weights, gradients and moments stays under 32 B an element of one
+    piece."""
+    from repro_torch.training import optimizer
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = dict(w=(41_017, 4_097), b=(4_097,))
+    assert 41_017 * 4_097 > max(1e8, 2 * optimizer.PIECE)
+
+    def tree(fn):
+        return {k: fn(k, s) for k, s in shapes.items()}
+
+    dt = dict(w=torch.bfloat16, b=torch.float32)
+    cpu = dict(
+        params=tree(lambda k, s: torch.randn(s, generator=gen).to(dt[k])),
+        grads=tree(lambda k, s: (0.1 * torch.randn(s, generator=gen))
+                   .to(dt[k])),
+        mu=tree(lambda k, s: 0.01 * torch.randn(s, generator=gen)),
+        nu=tree(lambda k, s: 1e-4 * torch.rand(s, generator=gen)))
+    old = {n: t.clone() for n, t in cpu["params"].items()}
+    card = {k: {n: t.to(dev) for n, t in v.items()} for k, v in cpu.items()}
+    cfg = optimizer.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100,
+                                grad_clip=1e30)
+
+    def state(t, device):
+        return dict(mu=t["mu"], nu=t["nu"],
+                    step=torch.zeros((), dtype=torch.int32, device=device))
+
+    ptrs = [t.data_ptr() for k in ("params", "mu", "nu")
+            for t in optimizer.leaves(card[k])]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, m_card = optimizer.apply_updates(cfg, card["params"],
+                                           card["grads"], state(card, dev))
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    _, _, m_cpu = optimizer.apply_updates(cfg, cpu["params"], cpu["grads"],
+                                          state(cpu, "cpu"))
+    assert [t.data_ptr() for k in ("params", "mu", "nu")
+            for t in optimizer.leaves(card[k])] == ptrs
+    assert m_card["lr"].item() == m_cpu["lr"].item()
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32).long()
+
+    for k in ("params", "mu", "nu"):
+        for n in shapes:
+            a, b = card[k][n].cpu(), cpu[k][n]
+            assert a.dtype == b.dtype, (k, n)
+            if k != "params":
+                assert torch.equal(a, b), (k, n)
+                continue
+            if a.dtype == torch.bfloat16:
+                off = (bits(a) - bits(b)).abs()
+                ok = off <= 1
+            else:
+                off = (a - b).abs()
+                ok = off <= (1e-6 * (b - old[n]).abs()
+                             + torch.finfo(b.dtype).eps * b.abs())
+            assert ok.all() and (off > 0).sum() <= 1e-3 * a.numel(), (
+                n, float(off.max()), int((off > 0).sum()))
+    x = cpu["nu"]["b"]
+    assert (bits(torch.sqrt(x.to(dev)).cpu())
+            - bits(torch.sqrt(x))).abs().max() <= 1
+    assert extra < 32 * optimizer.PIECE, (extra, optimizer.PIECE)
+
+
 # -- the scans' backward kernels ------------------------------------------
 # The plain backwards (the stepwise formulas) run in f32 on the same,
 # exactly upcast inputs; each gradient is held relative to its largest

@@ -208,6 +208,41 @@ def test_dryrun_smoke_subprocess(smoke_rows):
         assert r["memory"]["temp_bytes"] > 0, arch
 
 
+def test_dryrun_donation_keeps_one_copy_of_the_state():
+    """qwen2-0.5b's smoke config, a train row on a (2, 4) mesh of 8 fake
+    ranks, with and without the reference's buffer donation: donated, the
+    step writes the weights and moments into its arguments; not donated,
+    it copies them first, so its `temp_bytes` is larger by at least one
+    rank's weights + mu + nu. The flops are the same."""
+    got = _last_json(_run("""
+        import json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.analysis.op_stats import tree_bytes
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.specs import ShapeCase, params_specs
+        from repro_torch.parallel import sharding as shd
+        from repro_torch.training.optimizer import init_state
+        dryrun.init_fake_world(8)
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config("qwen2-0.5b").smoke()
+        case = ShapeCase("train_4k", 64, 8, "train")
+        out = {str(d): dryrun.row("qwen2-0.5b", case.name, False, cfg, case,
+                                  mesh, donate=d) for d in (True, False)}
+        p = shd.distribute_params(params_specs(cfg), mesh)
+        st = init_state(p)
+        out["state"] = tree_bytes((p, st["mu"], st["nu"]))
+        print(json.dumps(out))
+    """))
+    on, off = got["True"], got["False"]
+    assert on["status"] == off["status"] == "ok"
+    assert got["state"] > 0
+    assert on["hlo_flops_per_device"] == off["hlo_flops_per_device"] > 0
+    assert (off["memory"]["temp_bytes"] - on["memory"]["temp_bytes"]
+            >= got["state"]), (on["memory"], off["memory"], got["state"])
+
+
 def test_split_layer_stack_is_gathered_once_per_step():
     """llama4-scout's smoke config at 4 and 8 layers on a (2, 4) mesh of
     8 fake ranks: the rules split its shared expert's layer dim over

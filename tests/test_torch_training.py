@@ -38,7 +38,9 @@ from repro_torch.models import decoder  # noqa: E402
 from repro_torch.models.weights import (params_from_numpy,  # noqa: E402
                                         params_to_numpy)
 from repro_torch.training import checkpoint, data, optimizer  # noqa: E402
-from repro_torch.training.train_loop import train  # noqa: E402
+from repro_torch.training.train_loop import (as_trainable,  # noqa: E402
+                                              batch_on, make_train_step,
+                                              train)
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -79,11 +81,16 @@ def test_schedule_matches_reference(step):
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
-def _opt_tree(rng, grad_scale):
+SHAPES = dict(w=(6, 5), b=(7,), wb=(4, 9), nb=(5,), n=dict(v=(3, 2, 4)))
+# Leaves of odd sizes spanning several pieces of 1,000 elements (a short
+# last piece), f32 and bf16, a matrix and a vector.
+LARGE = dict(SHAPES, big=(41, 103), bigb=(37, 109), vec=(2_503,))
+
+
+def _opt_tree(rng, grad_scale, shapes=SHAPES):
     """Parameters (f32 and bf16, 1-D and 2-D), gradients and a state after
     a few steps, as numpy f32 (bf16 leaves' values already bf16)."""
-    shapes = dict(w=(6, 5), b=(7,), wb=(4, 9), nb=(5,), n=dict(v=(3, 2, 4)))
-    bf16 = {"wb", "nb"}
+    bf16 = {"wb", "nb", "bigb"}
 
     def tree(fn, shp=shapes):
         return {k: tree(fn, v) if isinstance(v, dict) else fn(k, v)
@@ -115,20 +122,32 @@ def _to_torch(tree, bf16):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("grad_scale", [10.0, 0.01], ids=["clipped",
-                                                           "unclipped"])
-def test_apply_updates_matches_reference(grad_scale):
+def _check_apply_updates(grad_scale, shapes=SHAPES, change_rtol=0.0):
+    """One update of the port against the reference's on the same tree:
+    in place (the returned weights and moments are the tensors given,
+    their storage too), bf16 weights bit for bit, f32 at rtol 1e-6 (plus
+    `change_rtol` of each element's change in the step)."""
     rng = np.random.default_rng(7)
-    params, grads, mu, nu, bf16 = _opt_tree(rng, grad_scale)
+    params, grads, mu, nu, bf16 = _opt_tree(rng, grad_scale, shapes)
     ref_cfg, cfg = ref_opt.AdamWConfig(**OPT), optimizer.AdamWConfig(**OPT)
     f32 = set()                 # the moments are f32 for every leaf
     w_p, w_s, w_m = ref_opt.apply_updates(
         ref_cfg, _to_jax(params, bf16), _to_jax(grads, bf16),
         dict(mu=_to_jax(mu, f32), nu=_to_jax(nu, f32), step=jnp.int32(12)))
+    given = dict(params=_to_torch(params, bf16),
+                 mu=_to_torch(mu, f32), nu=_to_torch(nu, f32))
+    ptrs = {k: [t.data_ptr() for t in optimizer.leaves(v)]
+            for k, v in given.items()}
+    objs = {k: optimizer.leaves(v) for k, v in given.items()}
+    state = dict(mu=given["mu"], nu=given["nu"],
+                 step=torch.tensor(12, dtype=torch.int32))
     g_p, g_s, g_m = optimizer.apply_updates(
-        cfg, _to_torch(params, bf16), _to_torch(grads, bf16),
-        dict(mu=_to_torch(mu, f32), nu=_to_torch(nu, f32),
-             step=torch.tensor(12, dtype=torch.int32)))
+        cfg, given["params"], _to_torch(grads, bf16), state)
+    assert g_p is given["params"] and g_s is state
+    for k, tree in (("params", g_p), ("mu", g_s["mu"]), ("nu", g_s["nu"])):
+        out = optimizer.leaves(tree)
+        assert all(a is b for a, b in zip(out, objs[k], strict=True)), k
+        assert [t.data_ptr() for t in out] == ptrs[k], k
     clipped = float(w_m["grad_norm"]) > OPT["grad_clip"]
     assert clipped == (grad_scale > 1)
     np.testing.assert_allclose(g_m["grad_norm"].item(),
@@ -136,19 +155,49 @@ def test_apply_updates_matches_reference(grad_scale):
     np.testing.assert_allclose(g_m["lr"].item(), float(w_m["lr"]), rtol=1e-6)
     assert int(g_s["step"]) == int(w_s["step"]) == 13
     got, want = optimizer.leaves(g_p), jax.tree.leaves(w_p)
-    names = sorted(["b", "n", "nb", "w", "wb"])
-    for name, g, w in zip(names, got, want, strict=True):
+    names = sorted(shapes)
+    old = {"params": params, "mu": mu, "nu": nu}
+
+    def close(key, k, g, w, atol, name):
+        """|g - w| <= atol + 1e-6 |w| (+ change_rtol of the change)."""
+        w = np.asarray(w)
+        atol = atol + change_rtol * np.abs(w - jax.tree.leaves(old[key])[k])
+        bad = ~np.isclose(g.numpy(), w, rtol=1e-6, atol=atol)
+        assert not bad.any(), (name, int(bad.sum()), g.numpy()[bad][:4],
+                               w[bad][:4])
+
+    for k, (name, g, w) in enumerate(zip(names, got, want, strict=True)):
         if g.dtype == torch.bfloat16:
             assert np.array_equal(_bf16_bits(g), _bf16_bits(w)), name
         else:
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
-                                       err_msg=name)
+            close("params", k, g, w, 0.0, name)
     for key in ("mu", "nu"):
-        for g, w in zip(optimizer.leaves(g_s[key]),
-                        jax.tree.leaves(w_s[key]), strict=True):
+        for k, (g, w) in enumerate(zip(optimizer.leaves(g_s[key]),
+                                       jax.tree.leaves(w_s[key]),
+                                       strict=True)):
             assert g.dtype == torch.float32
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
-                                       atol=1e-12)
+            close(key, k, g, w, 1e-12, f"{key} {names[k]}")
+
+
+@pytest.mark.parametrize("grad_scale", [10.0, 0.01], ids=["clipped",
+                                                           "unclipped"])
+def test_apply_updates_matches_reference(grad_scale):
+    _check_apply_updates(grad_scale)
+
+
+@pytest.mark.parametrize("grad_scale", [10.0, 0.001], ids=["clipped",
+                                                            "unclipped"])
+def test_apply_updates_in_pieces_matches_reference(grad_scale, monkeypatch):
+    """Leaves larger than a piece (1,000 elements here) are updated a
+    piece at a time over their flat storage: the reference's whole-leaf
+    values. f32 elements also take 1e-6 of their change in the step:
+    clipped, the port's and the reference's global norms sum in other
+    orders and differ in their last bits, which moves each change by
+    ~1e-7 of itself, and among these ~12,000 elements some weights and
+    moments land near zero, where that is more than 1e-6 of the value."""
+    monkeypatch.setattr(optimizer, "PIECE", 1000)
+    assert len(optimizer._pieces(torch.zeros(LARGE["vec"]))) == 3
+    _check_apply_updates(grad_scale, LARGE, change_rtol=1e-6)
 
 
 def test_global_norm_and_state_match_reference():
@@ -217,6 +266,56 @@ def test_train_loop_matches_reference_history():
                                    [h[key] for h in want], rtol=1e-4,
                                    err_msg=key)
     assert got[-1]["loss"] < got[0]["loss"] - 0.2
+
+
+def test_train_step_returns_its_input_objects():
+    """The step consumes its params and optimizer state as the reference's
+    donated jit does: it returns the same objects, updated in place, the
+    weights still leaves that require a gradient."""
+    _, cfg, tree = _qwen_smoke()
+    params = as_trainable(params_from_numpy(tree, cfg, "cpu"))
+    state = optimizer.init_state(params)
+    before = [t.detach().clone() for t in optimizer.leaves(params)]
+    objs = [optimizer.leaves(params), optimizer.leaves(state["mu"]),
+            optimizer.leaves(state["nu"]), state["step"]]
+    step = make_train_step(cfg, optimizer.AdamWConfig(**TRAIN_OPT))
+    batch = batch_on(_stream(cfg, data).batch(0), torch.device("cpu"))
+    p, s, m = step(params, state, batch)
+    assert p is params and s is state and s["step"] is objs[3]
+    assert int(s["step"]) == 1 and np.isfinite(float(m["loss"]))
+    for k, tree in enumerate((p, s["mu"], s["nu"])):
+        assert all(a is b for a, b in zip(optimizer.leaves(tree), objs[k],
+                                          strict=True))
+    for t, old in zip(optimizer.leaves(p), before, strict=True):
+        assert t.is_leaf and t.requires_grad
+    assert any(not torch.equal(t.detach(), old)
+               for t, old in zip(optimizer.leaves(p), before))
+
+
+def test_train_updates_the_trees_it_is_handed():
+    """Three `train` steps from handed params and optimizer state: the
+    history equals the reference's (as the 5-step test), the returned
+    state is the handed dict and the returned weights the handed tensors'
+    storage, now holding the step-3 weights."""
+    ref_cfg, cfg, tree = _qwen_smoke()
+    _, want = ref_train(ref_cfg, ref_opt.AdamWConfig(**TRAIN_OPT),
+                        _stream(cfg, ref_data), 3, log_every=1,
+                        params=jax.tree.map(jnp.asarray, tree))
+    params = params_from_numpy(tree, cfg, "cpu")
+    state = optimizer.init_state(params)
+    ptrs = [t.data_ptr() for t in optimizer.leaves(params)]
+    got_p, got, got_s = train(cfg, optimizer.AdamWConfig(**TRAIN_OPT),
+                              _stream(cfg, data), 3, log_every=1,
+                              params=params, opt_state=state, device="cpu",
+                              return_state=True)
+    assert got_s is state and int(state["step"]) == 3
+    assert [t.data_ptr() for t in optimizer.leaves(got_p)] == ptrs
+    assert all(torch.equal(a.detach(), b) for a, b in zip(
+        optimizer.leaves(got_p), optimizer.leaves(params), strict=True))
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose([h[key] for h in got],
+                                   [h[key] for h in want], rtol=1e-4,
+                                   err_msg=key)
 
 
 def test_resume_from_checkpoint_equals_uninterrupted(tmp_path):
