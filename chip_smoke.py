@@ -3540,6 +3540,11 @@ MIXER_TRAIN_B, MIXER_TRAIN_T = 2, 512
 # starts and read at its end.
 DRYRUNS = (("qwen2-72b", "train_4k", False),
            ("kimi-k2-1t-a32b", "decode_32k", True))
+# kimi-k2 decode_32k's row per device while the sharded MoE gathered its
+# experts' whole f (flops, collective bytes; PERF_APPENDIX.md), printed
+# beside this run's: constants, kept out of the JSON lines
+DRYRUN_GATHERED_EXPERTS = {("kimi-k2-1t-a32b", "decode_32k", True):
+                           (4.597e11, 2.025e11)}
 INT8_NMAJOR = "int8_grouped_matmul_nmajor"
 
 
@@ -3655,6 +3660,13 @@ def finish_dryruns(procs, t0) -> list:
               flush=True)
         print("  " + roofline.markdown_table([a]).splitlines()[-1],
               flush=True)
+        before = DRYRUN_GATHERED_EXPERTS.get((arch, shape, multi))
+        if before:
+            print(f"  {arch} {shape}: {r['hlo_flops_per_device']:.4e} flops"
+                  f" and {r['collective_bytes_per_device']:.4e} collective "
+                  f"bytes per device, {before[0]:.4e} and {before[1]:.4e} "
+                  f"when each rank gathered its experts' whole f",
+                  flush=True)
         rows.append(dict(row=r, roofline={k: v for k, v in a.items()
                                           if k != "collectives"}))
     print(f"  the dry-runs ended {time.perf_counter() - t0:.1f}s after "

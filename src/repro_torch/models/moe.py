@@ -24,12 +24,16 @@ shapes, and drops are masks, so a decode step issues its launches without
 waiting for the device.
 
 On DTensor activations (`parallel.sharding.distribute_params`) the
-routed experts run rank by rank (`_sharded_experts`): expert parallelism
-over "model" where E divides it, else plain TP on the experts' f; tokens
-stay replicated over "model", so no all-to-all is needed; the capacity
-and the drops are the global batch's. Each rank builds the dispatch
-buffers of its own experts only, so its buffers and the products' output
-are E over "model" by construction: the layout that the reference's hint
+routed experts run rank by rank (`_sharded_experts`) on the weights'
+shards as the reference's rule places them: E over "model" where it
+divides (expert parallelism), else plain TP on the experts' f, and f over
+the FSDP axes. No expert weight moves: where the weights split f over a
+mesh dim, the tokens come to them (gathered there), each rank runs its
+experts over its slice of f, and the output is a partial sum there. The
+capacity and the drops are the global batch's. Each rank builds the
+dispatch buffers of its own experts only, so its buffers and the
+products' output are E over "model" and whole over the data axes by
+construction: the layout that the reference's hint
 `cfg.moe_expert_shard_constraint` pins. In the port the flag therefore
 changes nothing, with a mesh or without one (without one it does nothing
 in the reference either).
@@ -114,25 +118,30 @@ def moe_params(normal, full, cfg: ModelConfig, n: int) -> dict:
     return p
 
 
-def _quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic per-row symmetric int8 quantisation of activations."""
+def _quant_act(x: torch.Tensor, row_max=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row symmetric int8 quantisation of activations.
+    `row_max` takes the rows' local maxima [..., 1] to the whole rows'
+    when x holds a slice of each row (the ranks' slices of f)."""
     x = x.float()
-    scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = (amax if row_max is None else row_max(amax)) / 127.0
     q = torch.round(x / torch.clamp(scale, min=1e-9)).to(torch.int8)
     return q, scale
 
 
-def _w8a8_ffn(p: dict, buf: torch.Tensor,
-              use_kernels: bool = True) -> torch.Tensor:
+def _w8a8_ffn(p: dict, buf: torch.Tensor, use_kernels: bool = True,
+              row_max=None) -> torch.Tensor:
     """Expert SwiGLU with int8 x int8 -> int32 products (W8A8): buf [E,C,d]
     -> [E,C,d] in buf's dtype. `use_kernels` picks the grouped int8 GEMM
     op (its plain version on CPU tensors) or the plain version; the two
-    are equal bit for bit."""
+    are equal bit for bit. Weights that hold a slice of f quantise the
+    hidden rows with `row_max` (`_quant_act`) and give a partial sum."""
     matmul = int8_grouped_matmul if use_kernels else int8_grouped_matmul_ref
     qb, bs = _quant_act(buf)                                # [E,C,d], [E,C,1]
     h1 = matmul(qb, p["w1"]).float() * bs * p["w1_s"]
     h3 = matmul(qb, p["w3"]).float() * bs * p["w3_s"]
-    qh, hs = _quant_act(F.silu(h1) * h3)
+    qh, hs = _quant_act(F.silu(h1) * h3, row_max)
     del qb, h1, h3
     ho = matmul(qh, p["w2"])
     return (ho.float() * hs * p["w2_s"]).to(buf.dtype)
@@ -177,14 +186,15 @@ def dispatch_slots(idx: torch.Tensor, C: int,
 
 def _experts(cfg: ModelConfig, xf: torch.Tensor, gate, idx, w1, w3, w2,
              scales: dict, use_kernels: bool, C: int, offset=None,
-             e0: int = 0) -> torch.Tensor:
+             e0: int = 0, row_max=None) -> torch.Tensor:
     """The routed experts of tokens xf [N, d], routed to (gate, idx)
     [N, k]: rank, dispatch into [E_l, C, d] buffers of the experts
     w1/w3/w2 hold (E_l of them from expert e0 on: all E, or one rank's),
     the SwiGLU products, and the combine of those experts' copies,
     weighted by their gates. `offset` [E]: copies of each expert before
     these tokens in the batch whose capacity C is. Only the E_l experts'
-    buffer rows are built."""
+    buffer rows are built. Weights that hold a slice of f give a partial
+    sum; `row_max` is then W8A8's (`_quant_act`)."""
     N, d = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     E_l = w1.shape[0]
@@ -201,7 +211,8 @@ def _experts(cfg: ModelConfig, xf: torch.Tensor, gate, idx, w1, w3, w2,
     buf = buf[:E_l * C].view(E_l, C, d)
 
     if scales:
-        ho = _w8a8_ffn(dict(w1=w1, w3=w3, w2=w2, **scales), buf, use_kernels)
+        ho = _w8a8_ffn(dict(w1=w1, w3=w3, w2=w2, **scales), buf, use_kernels,
+                       row_max)
     else:
         h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
         del buf                 # the buffers are the block's largest tensors
@@ -263,35 +274,47 @@ def _sharded_experts(p: dict, cfg: ModelConfig, x, use_kernels: bool):
     """The routed experts on DTensor x [B,T,d] (batch over the batch axes,
     replicated over "model"), rank by rank through `local_map`.
 
-    The expert weights are placed by the reference's rule: E over "model"
-    where it divides (expert parallelism), else their wide dim f (plain
-    TP). Tokens are replicated over "model", so no rank needs an
-    all-to-all: each routes the same copies as its "model" peers, fills
-    its own experts' buffer rows and runs the products on its experts (or
-    its slice of f); its output is a partial sum over "model". The FSDP
-    axes of the weights are gathered, as any weight's. The capacity is the
-    global batch's, as in the reference's program: each data rank counts
-    its copies per expert, the counts are all-gathered over the batch
-    axes, and a copy's slot is its rank in the whole batch's token order;
-    a rank's buffers hold the global C slots, its own copies among them."""
+    Each mesh dim is read from the expert weights' placements, which the
+    reference's rule sets, and no weight is gathered:
+    * f split (the FSDP axes; "model" in the TP fallback, where E does not
+      divide it): the tokens come to the weights. Each rank routes its own
+      tokens; x and its routes are gathered there, and each rank runs its
+      experts over the whole batch's copies on its slice of f: h @ w2 is
+      a partial sum there. W8A8 takes the hidden rows' int8 scales from
+      their maxima over all of f (an all-reduce of the row maxima), so
+      its int8 activations are the unsharded run's.
+    * E split over "model" (expert parallelism): x is whole there; each
+      rank fills only its own experts' buffer rows and its output is a
+      partial sum.
+    * Weights whole over a batch dim (f does not divide the FSDP axes):
+      each data rank keeps its own tokens. The capacity is the global
+      batch's, as in the reference's program: each data rank counts its
+      copies per expert, the counts are all-gathered over those dims, and
+      a copy's slot is its rank in the whole batch's token order; a
+      rank's buffers hold the global C slots, its own copies among them.
+    Where x is split on the batch and the output is a partial sum, the
+    output is reduce-scattered back onto the batch; it stays partial over
+    "model" (the shared expert's output is too), for
+    `decoder._batch_layout`."""
+    from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = x.device_mesh
-    E, f = cfg.n_experts, cfg.d_ff
+    E = cfg.n_experts
     scales = _scales(p, cfg)
     R = Replicate()
     # per mesh dim: placements of (x, w1/w3, w2, w1_s/w3_s, w2_s), output
     xp, w13, w2p, s13, s2p, out, split = [], [], [], [], [], [], []
-    batch_dims, e0 = [], 0
-    for i, name in enumerate(mesh.mesh_dim_names):
-        n = mesh.size(i)
-        if x.placements[i].is_shard(0):
-            batch_dims.append(i)
-            pl, o = (Shard(0), R, R, R, R), Shard(0)
-        elif name == "model" and E % n == 0:
-            pl, o = (R, Shard(0), Shard(0), Shard(0), Shard(0)), Partial()
-            e0 = mesh.get_local_rank(i) * (E // n)
-        elif name == "model" and f % n == 0:
+    f_dims, tok_dims, e0 = [], [], 0
+    for i, wp in enumerate(p["w1"].placements):
+        if wp.is_shard(2):
+            f_dims.append(i)
             pl, o = (R, Shard(2), Shard(1), Shard(2), R), Partial()
+        elif wp.is_shard(0):
+            pl, o = (R, Shard(0), Shard(0), Shard(0), Shard(0)), Partial()
+            e0 = mesh.get_local_rank(i) * (E // mesh.size(i))
+        elif x.placements[i].is_shard(0):
+            tok_dims.append(i)
+            pl, o = (Shard(0), R, R, R, R), Shard(0)
         else:
             pl, o = (R,) * 5, R
         for lst, q in zip((xp, w13, w2p, s13, s2p), pl):
@@ -300,22 +323,38 @@ def _sharded_experts(p: dict, cfg: ModelConfig, x, use_kernels: bool):
         split.append(not (pl[0].is_replicate() and pl[1].is_replicate()))
     s_in = tuple(s2p if n == "w2_s" else s13 for n in scales)
 
-    def fn(x, router, w1, w3, w2, *sc):
+    def row_max(m):
+        for i in f_dims:
+            if mesh.size(i) > 1:
+                m = funcol.wait_tensor(funcol.all_reduce(m, "max", (mesh, i)))
+        return m
+
+    def route_fn(x, router):
         x = _ContiguousGrad.apply(x)
         B, T, d = x.shape
-        xf = x.reshape(B * T, d)
-        if sc:                  # a gathered shard is contiguous: K-major
-            w1, w3, w2 = (kmajor(w) for w in (w1, w3, w2))
-        gate, idx = route(dict(router=router), cfg, xf)
-        offset, n_ranks = (_batch_offsets(idx, E, mesh, batch_dims)
-                           if batch_dims else (None, 1))
-        o = _experts(cfg, xf, gate, idx, w1, w3, w2, dict(zip(scales, sc)),
-                     use_kernels, capacity(cfg, B * T * n_ranks), offset, e0)
+        gate, idx = route(dict(router=router), cfg, x.reshape(B * T, d))
+        return gate.reshape(B, T, -1), idx.reshape(B, T, -1)
+    bp = list(x.placements)
+    gate, idx = _local_map(route_fn, (bp, bp), (bp, [R] * mesh.ndim), mesh,
+                           [q.is_shard() for q in bp])(x, p["router"])
+
+    def fn(x, gate, idx, w1, w3, w2, *sc):
+        x = _ContiguousGrad.apply(x)
+        B, T, d = x.shape
+        xf, idx = x.reshape(B * T, d), idx.reshape(B * T, -1)
+        offset, n_ranks = (_batch_offsets(idx, E, mesh, tok_dims)
+                           if tok_dims else (None, 1))
+        o = _experts(cfg, xf, gate.reshape(B * T, -1), idx, w1, w3, w2,
+                     dict(zip(scales, sc)), use_kernels,
+                     capacity(cfg, B * T * n_ranks), offset, e0,
+                     row_max if f_dims else None)
         return o.reshape(B, T, d)
-    return _local_map(fn, (out,),
-                      (xp, [R] * mesh.ndim, w13, w13, w2p, *s_in), mesh,
-                      split)(x, p["router"], p["w1"], p["w3"], p["w2"],
-                             *scales.values())
+    y = _local_map(fn, (out,), (xp, xp, xp, w13, w13, w2p, *s_in), mesh,
+                   split)(x, gate, idx, p["w1"], p["w3"], p["w2"],
+                          *scales.values())
+    back = [x.placements[i] if o.is_partial() and x.placements[i].is_shard()
+            else o for i, o in enumerate(out)]
+    return y if back == out else y.redistribute(mesh, back)
 
 
 def load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,

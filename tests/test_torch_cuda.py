@@ -1216,6 +1216,60 @@ def test_int8_grouped_matmul_matches_plain(dev, E, C, K, N):
     assert torch.equal(got, int8_grouped_matmul_ref(a, b))
 
 
+class _RankOf:
+    """The mesh interface `sharding._shard_of` reads, as one rank of a
+    (data, model) mesh sees it."""
+
+    def __init__(self, sizes, ranks):
+        self.sizes, self.ranks = sizes, ranks
+
+    def size(self, i):
+        return self.sizes[i]
+
+    def get_local_rank(self, i):
+        return self.ranks[i]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_data", [2, 4])
+def test_int8_wgmma_on_f_sliced_expert_shards(dev, n_data):
+    """The W8A8 experts' int8 weights at kimi-k2's d (7168) and f (2048),
+    stacked over 2 layers, K-major, split on f over a "data" axis of 2 or
+    4 as the sharded MoE holds them (`distribute_params`'s shard): every
+    rank's w2 shard [E, f/n, d] (K = f/n: 1024, 512) and w1 shard
+    [E, d, f/n] (N = f/n) of layer 1 goes to the K-major kernel with no
+    copy, bit for bit its plain version."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels.int8_grouped_matmul.ops import \
+        int8_grouped_matmul
+    from repro_torch.kernels.int8_grouped_matmul.ref import \
+        int8_grouped_matmul_ref
+    from repro_torch.parallel.sharding import _shard_of
+
+    L, E, C, d, f = 2, 4, 24, 7168, 2048
+    rng = np.random.default_rng(n_data)
+    w1 = kmajor(_int8(rng, (L, E, d, f), dev))
+    w2 = kmajor(_int8(rng, (L, E, f, d), dev))
+    fl = f // n_data
+    for r in range(n_data):
+        mesh = _RankOf((n_data, 1), (r, 0))
+        s1 = _shard_of(w1, mesh, [Shard(3), Replicate()])[1]
+        s2 = _shard_of(w2, mesh, [Shard(2), Replicate()])[1]
+        assert s1.shape == (E, d, fl) and s2.shape == (E, fl, d)
+        assert s1.stride(-2) == 1 and s2.stride(-2) == 1
+        assert kmajor(s1) is s1 and kmajor(s2) is s2
+        a1, a2 = _int8(rng, (E, C, d), dev), _int8(rng, (E, C, fl), dev)
+        w0 = int8_grouped_matmul.wgmma_launches
+        got1, got2 = int8_grouped_matmul(a1, s1), int8_grouped_matmul(a2, s2)
+        torch.cuda.synchronize()
+        assert int8_grouped_matmul.wgmma_launches == w0 + 2
+        assert torch.equal(got1, int8_grouped_matmul_ref(
+            a1, w1[1, :, :, r * fl:(r + 1) * fl].contiguous()))
+        assert torch.equal(got2, int8_grouped_matmul_ref(
+            a2, w2[1, :, r * fl:(r + 1) * fl].contiguous()))
+
+
 @pytest.mark.cuda
 def test_int8_grouped_matmul_extremes_and_strided_views(dev):
     """The largest sums (every product 128**2 or -127 * 128) at K 8192, and

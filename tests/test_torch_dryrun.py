@@ -166,10 +166,52 @@ _PORT_SMOKE = """
                            use_kernels=False)
     out["qwen2-0.5b"] = dict(flops=c.stats.flops,
                              collective_bytes=c.stats.collective_bytes)
+    for arch, wide in MOE_RUNS:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=2, d_ff=base.d_ff * wide)
+        p = shd.distribute_params(params_specs(cfg), mesh)
+        c = OpCounter()
+        with c, torch.no_grad():
+            decoder.train_loss(p, cfg, dict(tokens=t, targets=t),
+                               use_kernels=False)
+        out[f"{arch}/{wide}"] = dict(flops=c.stats.flops,
+                                     collective_bytes=c.stats.collective_bytes)
     case = ShapeCase("train_4k", 256, 8, "train")
     for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b"):
         c = dataclasses.replace(get_config(arch), n_layers=2)
         out[arch] = dryrun.row(arch, "train_4k", False, c, case, mesh)
+    print(json.dumps(out))
+"""
+
+# The MoE forward losses of `_PORT_SMOKE` and `_REF_MOE`: (arch, d_ff
+# multiple) at 2 layers, tokens [8, 256] on a (2, 4) mesh.
+MOE_RUNS = (("kimi-k2-1t-a32b", 1), ("kimi-k2-1t-a32b", 2),
+            ("llama4-scout-17b-a16e", 1))
+
+_REF_MOE = """
+    import dataclasses, json
+    import jax, jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.models import decoder
+    from repro.parallel import sharding as shd
+    from repro.launch.specs import params_specs
+    from repro.analysis.hlo_stats import analyze
+    mesh = jax.make_mesh((2, 4), ("data", "model"))
+    toks = jax.ShapeDtypeStruct((8, 256), jnp.int32)
+    tok_shard = jax.sharding.NamedSharding(
+        mesh, shd.batch_spec(mesh, toks.shape))
+    out = {}
+    for arch in ("kimi-k2-1t-a32b", "llama4-scout-17b-a16e"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        p_shapes = params_specs(cfg)
+        p_shard = shd.to_shardings(shd.param_specs(p_shapes, mesh), mesh)
+        with mesh:
+            f = jax.jit(lambda p, t, cfg=cfg: decoder.train_loss(
+                p, cfg, dict(tokens=t, targets=t)),
+                in_shardings=(p_shard, tok_shard))
+            compiled = f.lower(p_shapes, toks).compile()
+        s = analyze(compiled.as_text())
+        out[arch] = dict(flops=s.flops, collective_bytes=s.collective_bytes)
     print(json.dumps(out))
 """
 
@@ -178,10 +220,12 @@ _PORT_SMOKE = """
 def smoke_rows():
     """The port's side of the smoke, in a subprocess: qwen2-0.5b at 4
     layers, the forward loss on a (2, 4) mesh of 8 fake ranks, tokens
-    [8, 256], as the reference's test; and a train step (forward,
+    [8, 256], as the reference's test; the same for the MoE runs
+    `MOE_RUNS` at 2 layers; and a train step (forward,
     backward, AdamW) row of rwkv6-7b, zamba2-7b and kimi-k2 at 2 layers
     on the same mesh, batch [8, 256]."""
-    return _last_json(_run(_PORT_SMOKE))
+    return _last_json(_run(_PORT_SMOKE.replace(
+        "MOE_RUNS", repr(MOE_RUNS))))
 
 
 def test_dryrun_smoke_subprocess(smoke_rows):
@@ -206,6 +250,35 @@ def test_dryrun_smoke_subprocess(smoke_rows):
         assert r["raw_cost_analysis_flops"] > r["hlo_flops_per_device"], arch
         assert r["memory"]["argument_bytes"] > 0, arch
         assert r["memory"]["temp_bytes"] > 0, arch
+
+
+def test_sharded_moe_flops_match_reference(smoke_rows):
+    """kimi-k2 and llama4-scout at 2 layers, the forward loss on the
+    (2, 4) mesh: the port's flops within FLOP_TOL of the reference's HLO
+    count. Each rank runs its experts over the whole batch's copies
+    (the global capacity) on its slice of f, as the reference's GSPMD
+    program does; gathering the experts' whole f would run every expert
+    product twice over here (1.355x and 1.178x)."""
+    pytest.importorskip("jax")
+    ref = _last_json(_run(_REF_MOE, {
+        "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+        "JAX_PLATFORMS": "cpu"}))
+    for arch in ("kimi-k2-1t-a32b", "llama4-scout-17b-a16e"):
+        got = smoke_rows[f"{arch}/1"]["flops"]
+        ratio = got / ref[arch]["flops"]
+        assert abs(ratio - 1) <= FLOP_TOL, (arch, got, ref[arch], ratio)
+
+
+def test_moe_moves_tokens_not_expert_weights(smoke_rows):
+    """kimi-k2 at its d_ff and at twice it, the forward loss on the (2, 4)
+    mesh: the expert weights stay split over "data", the tokens move, so
+    the collective bytes do not grow with d_ff (within 1 %), as the
+    reference's do not (a gather of the experts' f grows by 8.46e9 bytes
+    a layer from d_ff to 2 * d_ff: 1.85x over the run)."""
+    one, two = (smoke_rows[f"kimi-k2-1t-a32b/{w}"]["collective_bytes"]
+                for w in (1, 2))
+    assert one > 0
+    assert abs(two / one - 1) <= 0.01, (one, two)
 
 
 def test_dryrun_donation_keeps_one_copy_of_the_state():

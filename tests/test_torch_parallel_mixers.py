@@ -1,6 +1,7 @@
 """The MoE, RWKV6 and Mamba2 mixers on DTensors against the JAX package:
 small configs of each family, on gloo process groups of 2 ranks on the
-CPU, as meshes (data, model) (1, 2) and (2, 1).
+CPU, as meshes (data, model) (1, 2) and (2, 1), and the MoE configs on 4
+ranks as (2, 2).
 
 The reference's numbers (logits of prefill and 3 decode steps, the
 training loss) come from `repro` in this process; the workers never
@@ -18,12 +19,13 @@ far past 1e-5 (the unsharded port and the reference differ by 2.1e-5 on
 its embedding), and the sharded run rounds its sums in another order.
 The MoE configs run at capacity factor 1.0, so their batches drop copies
 (`test_sharded_moe_capacity_is_global` shows that the drops change the
-reference's loss), and the sharded run must drop the same ones. On the
-(1, 2) mesh the W8A8 MoE's int8 activations are compared too
-(`test_sharded_w8a8_quantises_as_unsharded`): its row-parallel products
-sum in another order than the unsharded run's, and a last-bit change of
-an expert's input could move the round-to-nearest of the activation
-quantisation by one int8 step.
+reference's loss), and the sharded run must drop the same ones. The
+W8A8 MoE's int8 activations are compared too
+(`test_sharded_w8a8_quantises_as_unsharded`): its partial products sum
+in another order than the unsharded run's, and a last-bit change of an
+expert's input could move the round-to-nearest of the activation
+quantisation by one int8 step; where f is split, its hidden rows'
+scales come from maxima over the whole row, across ranks.
 """
 import dataclasses
 
@@ -40,7 +42,8 @@ from test_torch_parallel import _flat, _init, _spawn, _tree
 torch.set_num_threads(1)
 
 B, T, STEPS = 4, 16, 3
-MESHES = {"mesh1x2": 2, "mesh2x1": 1}          # name -> "model" axis size
+# name -> (ranks, "model" axis size)
+MESHES = {"mesh1x2": (2, 2), "mesh2x1": (2, 1), "mesh2x2": (4, 2)}
 
 
 def _configs(get):
@@ -59,13 +62,28 @@ def _configs(get):
         # 3 experts: the rules fall back to TP on f
         "moe_tp": dataclasses.replace(kimi, n_experts=3),
         "moe_w8a8": dataclasses.replace(kimi, moe_w8a8=True),
+        "moe_tp_w8a8": dataclasses.replace(kimi, n_experts=3, moe_w8a8=True),
     }
 
 
 ARCHS = list(_configs(get_config))
+MOE_ARCHS = [a for a in ARCHS if a.startswith("moe")]
+# the (arch, mesh) pairs each mesh's workers run: every config on 2 ranks,
+# the MoE ones on 4
+CASES = [(a, m) for m in MESHES for a in (MOE_ARCHS if m == "mesh2x2"
+                                          else ARCHS)]
+# W8A8 runs whose int8 activations are compared with the unsharded run's:
+# the experts split over "model" (EP), or f over "model" (the TP
+# fallback), or f over "data", each rank holding the whole batch's copies
+W8A8_TRACES = [("moe_w8a8", "mesh1x2"), ("moe_tp_w8a8", "mesh1x2"),
+               ("moe_w8a8", "mesh2x1"), ("moe_w8a8", "mesh2x2")]
+# the MoE runs of the capacity check: tokens gathered where f is split
+# over "data" (mesh2x1), and each data rank's own tokens where the
+# weights are whole over "data" (moe_tp's TP fallback on mesh2x2)
+CAPACITY = {"mesh2x1": "moe", "mesh2x2": "moe_tp"}
 
 
-def _worker(rank, world, store, model, inp, out):
+def _worker(rank, world, store, mesh_name, inp, out):
     _init(rank, world, store)
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -78,16 +96,17 @@ def _worker(rank, world, store, model, inp, out):
 
     with np.load(inp) as f:
         data = dict(f)
-    mesh = make_host_mesh(model, device="cpu")
+    mesh = make_host_mesh(MESHES[mesh_name][1], device="cpu")
     toks = torch.from_numpy(data["tokens"])
-    res, moe_trees = {}, None
+    res, trees = {}, {}
     for name, cfg in _configs(get_config).items():
+        if (name, mesh_name) not in CASES:
+            continue
         weights = _tree({k[len(name) + 3:]: v for k, v in data.items()
                          if k.startswith(f"p/{name}/")})
         params = params_from_numpy(weights, cfg, "cpu")
         sp = distribute_params(params, mesh)
-        if name == "moe":
-            moe_trees = (params, sp)
+        trees[name] = (params, sp)
         with torch.no_grad():
             lg, cache = decoder.prefill(sp, cfg, toks, max_len=T + STEPS)
             steps = [whole(lg)]
@@ -108,8 +127,9 @@ def _worker(rank, world, store, model, inp, out):
             x = torch.from_numpy(data["moe_x"])
             res[f"{name}/block"] = whole(moe.moe_apply(
                 lp, cfg, DTensor.from_local(x, mesh, [Replicate()] * 2)))
-            if model == 2:
-                res.update(_w8a8_trace(name, cfg, params, sp, data, rank,
+            res.update(_w8a8_plain_block(name, cfg, params, x))
+            if (name, mesh_name) in W8A8_TRACES:
+                res.update(_w8a8_trace(name, cfg, params, sp, data, mesh,
                                        whole))
             continue
         for label, ps in (("sharded", sp), ("plain", params)):
@@ -123,21 +143,22 @@ def _worker(rank, world, store, model, inp, out):
                 res[f"{name}/grad_{label}/" + "/".join(path)] = whole(t.grad)
                 t.requires_grad_(False)
                 t.grad = None
-    if model == 1:
+    if mesh_name in CAPACITY:
         # The capacity is the global batch's: the MoE block on the batch
         # split over data drops the copies the whole batch drops, which
-        # two half batches run alone would not.
-        cfg = _configs(get_config)["moe"]
+        # the data ranks' parts run alone would not.
+        cfg = _configs(get_config)[CAPACITY[mesh_name]]
         lp, slp = (decoder._layer(ps["layers"], 0)["moe"]
-                   for ps in moe_trees)
+                   for ps in trees[CAPACITY[mesh_name]])
         x = torch.from_numpy(data["moe_x"])
-        h = x.shape[0] // 2
+        n = mesh.size(0)
+        h, me = x.shape[0] // n, mesh.get_local_rank(0)
         got = moe.moe_apply(slp, cfg, DTensor.from_local(
-            x[rank * h:(rank + 1) * h], mesh, [Shard(0), Replicate()]))
+            x[me * h:(me + 1) * h], mesh, [Shard(0), Replicate()]))
         res["capacity/sharded"] = whole(got)
         res["capacity/whole"] = moe.moe_apply(lp, cfg, x)
-        res["capacity/halves"] = torch.cat([moe.moe_apply(lp, cfg, x[:h]),
-                                            moe.moe_apply(lp, cfg, x[h:])])
+        res["capacity/halves"] = torch.cat([
+            moe.moe_apply(lp, cfg, x[j * h:(j + 1) * h]) for j in range(n)])
         xf = x.reshape(-1, cfg.d_model)
         _, idx = moe.route(lp, cfg, xf)
         _, keep = moe.dispatch_slots(idx, moe.capacity(cfg, xf.shape[0]))
@@ -147,23 +168,47 @@ def _worker(rank, world, store, model, inp, out):
     dist.destroy_process_group()
 
 
-def _w8a8_trace(name, cfg, params, sp, data, rank, whole):
+def _w8a8_plain_block(name, cfg, params, x):
+    """The unsharded W8A8 MoE block of layer 0 on x, and the largest
+    change one flipped rounding of its hidden activations can make (its
+    largest hidden row scale times the largest of 127 * w2_s, as
+    `test_torch_moe`'s bound for the module against the reference)."""
+    quant, scales = moe._quant_act, []
+
+    def quant_rec(h, *a):
+        q, scale = quant(h, *a)
+        scales.append(scale)
+        return q, scale
+    lp = decoder._layer(params["layers"], 0)["moe"]
+    moe._quant_act = quant_rec
+    try:
+        with torch.no_grad():
+            out = moe.moe_apply(lp, cfg, x)
+    finally:
+        moe._quant_act = quant
+    step = float(scales[1].max()) * float((127.0 * lp["w2_s"]).max())
+    return {f"{name}/block_plain": out, f"{name}/block_step": step}
+
+
+def _w8a8_trace(name, cfg, params, sp, data, mesh, whole):
     """The W8A8 MoE's prefill and decode steps run again, sharded (`sp`)
-    and unsharded (`params`) on the experts split over "model", with
-    every call of the MoE block and of the activation quantisation
-    recorded. Returns the sharded run's block inputs and outputs (whole
-    tensors, in call order) and, summed over both ranks, how many of the
-    int8 activations (expert inputs and hidden rows) of each rank's
-    experts differ between the runs, their largest difference in int8
-    steps, and the largest difference of the blocks' float inputs."""
+    and unsharded (`params`), with every call of the MoE block and of the
+    activation quantisation recorded. Returns the sharded run's block
+    inputs and outputs (whole tensors, in call order) and, summed over
+    the ranks, how many of the int8 activations (expert inputs and hidden
+    rows) of each rank's experts and slice of f differ between the runs,
+    their largest difference in int8 steps, and the largest difference of
+    the blocks' float inputs. Each rank must hold the whole batch's
+    copies of its experts (the experts or f split, no data rank keeping
+    its own tokens)."""
     quant, apply = moe._quant_act, decoder.moe_apply
     runs = {"sharded": dict(q=[], io=[]), "plain": dict(q=[], io=[])}
 
     def run(label, ps):
         log = runs[label]
 
-        def quant_rec(x):
-            q, scale = quant(x)
+        def quant_rec(x, *a):
+            q, scale = quant(x, *a)
             log["q"].append(q)
             return q, scale
 
@@ -186,10 +231,19 @@ def _w8a8_trace(name, cfg, params, sp, data, rank, whole):
     run("plain", params)
     qs, qp = runs["sharded"]["q"], runs["plain"]["q"]
     assert len(qs) == len(qp) > 0
+    # this rank's index among the experts' and f's slices: the mesh dims
+    # that split the stacked w1 [n, E, d, f] on E or on f, major first
+    e_me = f_me = 0
+    for i, pl in enumerate(sp["layers"]["moe"]["w1"].placements):
+        r, n = mesh.get_local_rank(i), mesh.size(i)
+        e_me = e_me * n + r if pl.is_shard(1) else e_me
+        f_me = f_me * n + r if pl.is_shard(3) else f_me
     n_diff, n_all, step = 0, 0, 0
     for a, b in zip(qs, qp, strict=True):
-        e_l = a.shape[0]
-        b = b[rank * e_l:(rank + 1) * e_l]
+        e_l, f_l = a.shape[0], a.shape[-1]
+        b = b[e_me * e_l:(e_me + 1) * e_l]
+        if b.shape[-1] != f_l:      # hidden rows: this rank's slice of f
+            b = b[..., f_me * f_l:(f_me + 1) * f_l]
         assert a.shape == b.shape, (a.shape, b.shape)
         d = (a.int() - b.int()).abs()
         n_diff += int((d > 0).sum())
@@ -267,7 +321,8 @@ def sharded(reference, tmp_path_factory):
             tmp = tmp_path_factory.mktemp(mesh)
             inp, out = tmp / "in.npz", tmp / "out.npz"
             np.savez(inp, **reference[0])
-            _spawn(_worker, 2, 2, str(tmp / "store"), MESHES[mesh], str(inp),
+            world = MESHES[mesh][0]
+            _spawn(_worker, world, world, str(tmp / "store"), mesh, str(inp),
                    str(out))
             with np.load(out) as f:
                 runs[mesh] = dict(f)
@@ -275,8 +330,8 @@ def sharded(reference, tmp_path_factory):
     return get
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,mesh", CASES,
+                         ids=[f"{a}-{m}" for a, m in CASES])
 def test_sharded_mixer_equals_reference(reference, sharded, arch, mesh):
     """Prefill and 3 decode steps on DTensor parameters and caches give
     the reference's logits; `train_loss` gives the reference's loss and
@@ -286,11 +341,22 @@ def test_sharded_mixer_equals_reference(reference, sharded, arch, mesh):
     got = sharded(mesh)
     np.testing.assert_allclose(got[f"{arch}/logits"], want[f"{arch}/logits"],
                                atol=1e-5, rtol=1e-5)
-    if arch == "moe_w8a8":
+    if arch.endswith("w8a8"):
         for label in ("sharded", "plain"):
             assert "not trainable" in str(got[f"{arch}/raised_{label}"])
+        # The MoE block on random rows: the unsharded port's at 1e-5; and
+        # the reference's at 1e-5, or, where the unsharded port's own
+        # silu lands an ulp across a rounding boundary of the hidden
+        # quantisation (moe_tp_w8a8 here), within the one int8 step that
+        # `test_torch_moe` allows the unsharded module.
         np.testing.assert_allclose(got[f"{arch}/block"],
-                                   want[f"{arch}/block"], atol=1e-5,
+                                   got[f"{arch}/block_plain"], atol=1e-5,
+                                   rtol=1e-5)
+        tol = (1e-5 if arch == "moe_w8a8"
+               else float(got[f"{arch}/block_step"]) + 2e-5)
+        assert float(got[f"{arch}/block_step"]) > 0
+        np.testing.assert_allclose(got[f"{arch}/block"],
+                                   want[f"{arch}/block"], atol=tol,
                                    rtol=1e-5)
         return
     np.testing.assert_allclose(got[f"{arch}/loss_sharded"],
@@ -307,18 +373,17 @@ def test_sharded_mixer_equals_reference(reference, sharded, arch, mesh):
             atol=atol, rtol=1e-5, err_msg=k)
 
 
-def test_sharded_w8a8_quantises_as_unsharded(reference, sharded):
-    """The W8A8 MoE on the (1, 2) mesh, its experts split over "model":
-    every MoE block of the sharded prefill and decode steps gives the
+def _check_w8a8_trace(reference, sharded, arch, mesh):
+    """Every MoE block of the W8A8 run `arch` on `mesh` gives the
     reference's block output on the same input at 1e-5, and the int8
-    activations of each rank's experts equal the unsharded run's, though
-    the blocks' float inputs differ in their last bits."""
+    activations of each rank's experts (and slice of f) equal the
+    unsharded run's. Returns the largest difference of the blocks' float
+    inputs between the sharded and the unsharded run."""
     import jax
     from repro.configs import get_config as ref_get_config
     from repro.models import moe as ref_moe
     inputs, _ = reference
-    got = sharded("mesh1x2")
-    arch = "moe_w8a8"
+    got = sharded(mesh)
     cfg = _configs(ref_get_config)[arch]
     prefix = f"p/{arch}/layers/moe/"
     stack = _tree({k[len(prefix):]: v for k, v in inputs.items()
@@ -332,23 +397,62 @@ def test_sharded_w8a8_quantises_as_unsharded(reference, sharded):
             got[f"{arch}/io_y/{j}"],
             np.asarray(ref_moe.moe_apply(lp, cfg, x)), atol=1e-5, rtol=1e-5,
             err_msg=f"call {j}")
-    assert 0 < float(got[f"{arch}/x_gap"]) < 1e-5
     assert int(got[f"{arch}/q_all"]) > 0
     assert int(got[f"{arch}/q_diff"]) == int(got[f"{arch}/q_step"]) == 0
+    return float(got[f"{arch}/x_gap"])
+
+
+def test_sharded_w8a8_quantises_as_unsharded(reference, sharded):
+    """The W8A8 MoE on the (1, 2) mesh, its experts split over "model":
+    every MoE block of the sharded prefill and decode steps gives the
+    reference's block output on the same input at 1e-5, and the int8
+    activations of each rank's experts equal the unsharded run's, though
+    the blocks' float inputs differ in their last bits."""
+    gap = _check_w8a8_trace(reference, sharded, "moe_w8a8", "mesh1x2")
+    assert 0 < gap < 1e-5
+
+
+@pytest.mark.parametrize("arch,mesh", W8A8_TRACES[1:],
+                         ids=[f"{a}-{m}" for a, m in W8A8_TRACES[1:]])
+def test_sharded_w8a8_quantises_as_unsharded_on_f_slices(reference, sharded,
+                                                         arch, mesh):
+    """As `test_sharded_w8a8_quantises_as_unsharded`, where each rank
+    holds a slice of f: over "model" in the TP fallback (3 experts), over
+    "data" (2, 1), and both E and f split (2, 2). The hidden rows' int8
+    scales are the maxima over the whole rows, so every int8 activation
+    of a rank's slice equals the unsharded run's."""
+    assert _check_w8a8_trace(reference, sharded, arch, mesh) < 1e-5
 
 
 def test_sharded_moe_capacity_is_global(reference, sharded):
-    """On the (2, 1) mesh each data rank holds half the batch. At capacity
+    """On the (2, 1) mesh each data rank holds half the batch (gathered
+    where the experts' f is split over "data"). At capacity
     factor 1.0 the whole batch drops copies (and the drops change the
     reference's loss); the sharded MoE block drops the same copies as the
     whole batch (1e-6 from the unsharded block, 1e-5 from the
     reference's), where two half batches run alone would not."""
+    _check_capacity(reference, sharded, "mesh2x1", 1e-6)
+
+
+def test_sharded_moe_capacity_is_global_on_per_rank_tokens(reference,
+                                                           sharded):
+    """As `test_sharded_moe_capacity_is_global`, on the (2, 2) mesh with
+    3 experts: the rules fall back to TP on f over "model" and leave the
+    expert weights whole over "data", so each data rank keeps its own
+    tokens and their slots count the copies of the data ranks before it
+    (`dispatch_slots(offset=)`). The block is a partial sum over "model"
+    here, so it is held to the unsharded block at the file's 1e-5."""
+    _check_capacity(reference, sharded, "mesh2x2", 1e-5)
+
+
+def _check_capacity(reference, sharded, mesh, tol):
     _, want = reference
-    got = sharded("mesh2x1")
+    got = sharded(mesh)
+    arch = CAPACITY[mesh]
     assert int(got["capacity/dropped"]) > 0
-    assert abs(want["moe/loss"] - want["moe/loss_no_drops"]) > 1e-4
+    assert abs(want[f"{arch}/loss"] - want[f"{arch}/loss_no_drops"]) > 1e-4
     np.testing.assert_allclose(got["capacity/sharded"],
-                               got["capacity/whole"], atol=1e-6, rtol=1e-6)
-    np.testing.assert_allclose(got["capacity/sharded"], want["moe/block"],
-                               atol=1e-5, rtol=1e-5)
+                               got["capacity/whole"], atol=tol, rtol=tol)
+    np.testing.assert_allclose(got["capacity/sharded"],
+                               want[f"{arch}/block"], atol=1e-5, rtol=1e-5)
     assert np.abs(got["capacity/halves"] - got["capacity/whole"]).max() > 1e-3
