@@ -159,7 +159,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      which with phases 11-14 keeps the card busy; each on a core of its own
      that this process keeps off meanwhile), `launch.dryrun` of
      qwen2-72b train_4k on 256 ranks and kimi-k2 decode_32k on 512, both
-     `status: ok`, their rows and roofline lines printed;
+     `status: ok`, their rows and roofline lines printed; 14.5 the
+     slot-split decode on the card at kimi-k2's per-rank decode_32k shape
+     on 2x16x16 (B 4, KV 8, G 8, hd 128, bf16, an 8,192-slot ring cut
+     into the 16 "model" ranks' 512 slots): the kernel with its
+     log-sum-exp on each range, merged by `merge_decode_parts` (the
+     mesh's arithmetic, over a stacked dim), against the kernel over the
+     whole cache at the bf16 tolerances and its plain version in f32, at
+     a late position (every range full) and an early one (14 ranges
+     empty: zeros and -inf, no NaN); one range's call and the whole
+     cache's (what each rank ran while the cache was gathered) timed as
+     CUDA-graph replays beside their bytes bounds;
  15. the example drivers on the card, each as a subprocess with its
      default flags but the train twin's --steps 50:
      `examples/serve_e2e_torch.py` (AGH plans the default instance, the
@@ -3540,11 +3550,19 @@ MIXER_TRAIN_B, MIXER_TRAIN_T = 2, 512
 # starts and read at its end.
 DRYRUNS = (("qwen2-72b", "train_4k", False),
            ("kimi-k2-1t-a32b", "decode_32k", True))
-# kimi-k2 decode_32k's row per device while the sharded MoE gathered its
-# experts' whole f (flops, collective bytes; PERF_APPENDIX.md), printed
-# beside this run's: constants, kept out of the JSON lines
-DRYRUN_GATHERED_EXPERTS = {("kimi-k2-1t-a32b", "decode_32k", True):
-                           (4.597e11, 2.025e11)}
+# kimi-k2 decode_32k's row per device while each "model" rank gathered the
+# whole KV cache and attended over all of it (flops, collective bytes;
+# PERF.md section 6), printed beside this run's: constants, kept out of
+# the JSON lines
+DRYRUN_GATHERED_CACHE = {("kimi-k2-1t-a32b", "decode_32k", True):
+                         (8.489e10, 9.265e9)}
+# 14.5: the slot-split decode on one card at kimi-k2's per-rank decode_32k
+# shape on 2x16x16: batch 128 over the 32 (pod, data) ranks, 8 KV heads of
+# G 8 at hd 128, the 8,192-slot window's ring cut into the 16 "model"
+# ranks' ranges; a late decode position (every range full) and an early
+# one (ranges 2-15 empty).
+SLOT_DECODE = dict(B=4, KV=8, G=8, hd=128, S=8192, n=16)
+SLOT_DECODE_POS = (3 * 8192 + 123, 1000)
 INT8_NMAJOR = "int8_grouped_matmul_nmajor"
 
 
@@ -3660,12 +3678,12 @@ def finish_dryruns(procs, t0) -> list:
               flush=True)
         print("  " + roofline.markdown_table([a]).splitlines()[-1],
               flush=True)
-        before = DRYRUN_GATHERED_EXPERTS.get((arch, shape, multi))
+        before = DRYRUN_GATHERED_CACHE.get((arch, shape, multi))
         if before:
             print(f"  {arch} {shape}: {r['hlo_flops_per_device']:.4e} flops"
                   f" and {r['collective_bytes_per_device']:.4e} collective "
                   f"bytes per device, {before[0]:.4e} and {before[1]:.4e} "
-                  f"when each rank gathered its experts' whole f",
+                  f"when each model rank gathered the whole KV cache",
                   flush=True)
         rows.append(dict(row=r, roofline={k: v for k, v in a.items()
                                           if k != "collectives"}))
@@ -3810,6 +3828,123 @@ def train_mixer(mesh, dev, seed, arch, n_layers) -> dict:
                 wall_s=wall, unsharded_wall_s=wall0)
 
 
+def slot_split_decode(dev, seed) -> dict:
+    """Phase 14.5 (`SLOT_DECODE`): the decode kernel with its lse on each
+    rank's slot range, the parts merged by `merge_decode_parts` over a
+    stacked dim, the arithmetic that the mesh runs over its "model" dim;
+    held against the kernel over the whole cache (bf16 tolerances) and
+    the plain version in f32, at each of `SLOT_DECODE_POS`; each range's
+    lse against its plain version's at 2e-5. Then one range's call, with
+    and without the lse, the whole cache's call, and the merge, timed as
+    CUDA-graph replays, beside the bytes bounds. Returns the numbers."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import (decode_key_positions,
+                                           merge_decode_parts)
+
+    c = SLOT_DECODE
+    B, KV, G, hd, S, n = (c[k] for k in ("B", "KV", "G", "hd", "S", "n"))
+    L = S // n
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 145)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev).to(bf16)
+    kc = model_layout(gen, B, S, KV, hd, bf16, dev)
+    vc = model_layout(gen, B, S, KV, hd, bf16, dev)
+    starts = range(0, S, L)
+    out = dict(shape=f"B={B} KV={KV} G={G} hd={hd} S={S} ring, {n} ranges "
+                     f"of {L} slots, bf16", positions={})
+    n0 = decode_attention.launches
+    for pos in SLOT_DECODE_POS:
+        maps = [decode_key_positions(S, pos, S, dev, start=a, length=L)
+                for a in starts]
+        parts = [decode_attention(q, kc[:, :, a:a + L], vc[:, :, a:a + L],
+                                  kp, pos, return_lse=True)
+                 for a, kp in zip(starts, maps)]
+        lse_err = 0.0
+        for a, kp, (_, lse) in zip(starts, maps, parts):
+            want = decode_attention_ref(
+                *f32(q, kc[:, :, a:a + L], vc[:, :, a:a + L]), kp, pos,
+                return_lse=True)[1]
+            fin = torch.isfinite(want)
+            if not (torch.equal(torch.isfinite(lse), fin) and torch.allclose(
+                    lse[fin], want[fin], atol=F32_TOL, rtol=F32_TOL)):
+                fail(f"14.5 pos {pos}: range {a}'s lse disagrees with its "
+                     f"plain version's")
+            if fin.any():
+                lse_err = max(lse_err, (lse[fin] - want[fin]).abs().max()
+                              .item())
+        empty = sum(bool(torch.isneginf(lse).all()) for _, lse in parts)
+        zero = all(bool((o == 0).all()) for o, lse in parts
+                   if bool(torch.isneginf(lse).all()))
+        if empty != max(S - pos - 1, 0) // L:
+            fail(f"14.5 pos {pos}: {empty} empty ranges")
+        merged = merge_decode_parts(torch.stack([o for o, _ in parts]),
+                                    torch.stack([lse for _, lse in parts]),
+                                    dim=0)
+        if torch.isnan(merged).any() or not zero:
+            fail(f"14.5 pos {pos}: NaN in the merge, or an empty range "
+                 f"whose output is not zero")
+        k_pos = decode_key_positions(S, pos, S, dev)
+        whole = decode_attention(q, kc, vc, k_pos, pos)
+        plain = decode_attention_ref(*f32(q, kc, vc), k_pos, pos)
+        err_whole, rel_whole = check_kernel(
+            f"14.5 merged vs the whole-cache kernel, pos {pos}",
+            merged.to(bf16), whole.float())
+        err_plain, rel_plain = check_kernel(
+            f"14.5 merged vs the plain version (f32), pos {pos}",
+            merged.to(bf16), plain)
+        out["positions"][str(pos)] = dict(
+            empty_ranges=empty, max_abs_err_vs_whole_kernel=err_whole,
+            row_rel_vs_whole_kernel=rel_whole,
+            max_abs_err_vs_plain=err_plain, row_rel_vs_plain=rel_plain,
+            range_lse_max_abs_err=lse_err)
+        print(f"  pos {pos}: {empty} of {n} ranges empty, range lse within "
+              f"{lse_err:.3e} of the plain version's", flush=True)
+    out["check_launches"] = decode_attention.launches - n0
+
+    # Times at the late position: every slot admissible, so the bounds
+    # are the ranges' and the whole cache's bytes.
+    pos = SLOT_DECODE_POS[0]
+    maps = [decode_key_positions(S, pos, S, dev, start=a, length=L)
+            for a in starts]
+    k_pos = decode_key_positions(S, pos, S, dev)
+    ranges = [(kc[:, :, a:a + L], vc[:, :, a:a + L], kp)
+              for a, kp in zip(starts, maps)]
+    item = q.element_size()
+
+    def range_bound(slots):
+        return bound(item * (2 * q.numel() + 2 * B * KV * slots * hd)
+                     + 4 * slots + (4 * B * KV * G), 4.0 * B * KV * G * hd
+                     * slots)
+    range_ms = time_ms([lambda r=r: dk.decode_attention(
+        q, *r, pos, return_lse=True) for r in ranges])[0]
+    range_plain_ms = time_ms([lambda r=r: dk.decode_attention(q, *r, pos)
+                              for r in ranges])[0]
+    whole_ms = time_ms([lambda: dk.decode_attention(q, kc, vc, k_pos,
+                                                    pos)])[0]
+    o_parts = torch.stack([p[0] for p in parts])
+    l_parts = torch.stack([p[1] for p in parts])
+    merge_ms = time_ms([lambda: merge_decode_parts(o_parts, l_parts,
+                                                   dim=0)])[0]
+    rb, rby = range_bound(L)
+    wb, wby = range_bound(S)
+    out.update(range_ms=range_ms, range_no_lse_ms=range_plain_ms,
+               range_bound_ms=rb, range_bound_by=rby, whole_ms=whole_ms,
+               whole_bound_ms=wb, whole_bound_by=wby,
+               merge_of_stacked_parts_ms=merge_ms,
+               range_cache_mb=2 * B * KV * L * hd * item / 1e6,
+               whole_cache_mb=2 * B * KV * S * hd * item / 1e6)
+    print(f"  one range ({L} slots, {out['range_cache_mb']:.1f} MB): "
+          f"{range_ms:.4f} ms with the lse, {range_plain_ms:.4f} ms without "
+          f"(bound {rb:.4f} ms, {rby}); the whole cache ({S} slots, "
+          f"{out['whole_cache_mb']:.1f} MB, what each model rank ran while "
+          f"the cache was gathered): {whole_ms:.4f} ms (bound {wb:.4f} ms, "
+          f"{wby}); the merge of {n} stacked parts on one card "
+          f"{merge_ms:.4f} ms", flush=True)
+    return out
+
+
 def mixers_under_a_mesh(dev=None, seed: int = 0, dryruns=None) -> dict:
     """Phase 14: the MoE, RWKV6 and Mamba2 mixers on DTensors on a
     one-process NCCL group and a one-device mesh (serving, memory,
@@ -3845,6 +3980,9 @@ def mixers_under_a_mesh(dev=None, seed: int = 0, dryruns=None) -> dict:
                                                     n_layers)
         finally:
             dist.destroy_process_group()
+        phase("14.5 the slot-split decode: kernel with lse per slot range, "
+              "merged")
+        out["slot_decode"] = slot_split_decode(dev, seed)
         phase("14.4 the dry-runs")
         out["dryrun"] = finish_dryruns(procs, started)
     finally:

@@ -147,6 +147,12 @@ DEVICE_PROGRAMS: tuple[DeviceProgram, ...] = (
                   ("src/repro/serving/engine.py:42",), "the engine's prefill"),
     DeviceProgram("models/decoder.py", ("decode_step",),
                   ("src/repro/serving/engine.py:44",), "one decode step"),
+    DeviceProgram("models/layers.py",
+                  ("_sharded_decode", "_decode_attention",
+                   "merge_decode_parts", "decode_key_positions"),
+                  ("src/repro/serving/engine.py:44",),
+                  "a decode step's attention, on a cache split on its "
+                  "slots: each rank's part and the merge"),
     DeviceProgram("serving/engine.py", ("Engine.generate",),
                   ("src/repro/serving/engine.py:42",
                    "src/repro/serving/engine.py:44"),

@@ -9,7 +9,15 @@
 // position map, so ring caches and the 2**30 mark of an empty slot are
 // masked by the same test. A masked slot gets the logit -1e30, as in the
 // reference. m, l and the accumulator are f32; l is clamped at 1e-30; the
-// output has the input's type.
+// output has the input's type. A group with no admissible slot (all of its
+// logits -1e30, common once a mesh splits the cache on its slots) writes
+// zeros, where the softmax would give the mean of v.
+//
+// Optionally it writes lse [B, KV, G] f32: the natural log of the sum of
+// exp(scaled score) over the admissible slots, -inf for a group with none,
+// so that partial results over disjoint slot ranges can be merged. The
+// block that writes the output writes it: the single run, the last block
+// of the folded merge (bf16), the combine kernel (f32).
 //
 // What bounds it on the H100: decode reads the whole cache once for ~2 G
 // FLOPs per element, far below the card's ridge, so it is bound by bytes:
@@ -62,6 +70,7 @@ namespace {
 constexpr int DBK = 64;    // cache slots per tile
 constexpr int DNT = 128;   // threads per block
 constexpr int GMAX = 16;   // most query heads per KV group
+constexpr float kLn2 = 0.6931471805599453f;   // the bf16 path's log2 -> ln
 
 template <int HD>
 constexpr int smem_floats() {
@@ -80,9 +89,10 @@ __host__ __device__ constexpr int part_floats(int G) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(DNT) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ ws,
-    const int* __restrict__ k_pos, int pos, int S, int G, int split_len,
-    float scale, Strides sq, Strides sk, Strides sv, Strides so) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    float* __restrict__ ws, const int* __restrict__ k_pos, int pos, int S,
+    int G, int split_len, float scale, Strides sq, Strides sk, Strides sv,
+    Strides so) {
   static_assert(DBK == 64, "the softmax step gives each lane two slots");
   constexpr int LDK = HD + 1;
   constexpr int NACC = (GMAX * HD + DNT - 1) / DNT;
@@ -197,10 +207,13 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
       const int idx = tid + t * DNT;
       if (idx < n_out) {
         const int g = idx / HD, d = idx % HD;
-        ob[g * so.t + d * so.d] =
-            from_float<T>(acc[t] / fmaxf(l_s[g], 1e-30f));
+        ob[g * so.t + d * so.d] = from_float<T>(
+            m_s[g] <= kNegInf ? 0.f : acc[t] / fmaxf(l_s[g], 1e-30f));
       }
     }
+    if (lse && tid < G)
+      lse[(b * gridDim.y + kvh) * G + tid] =
+          m_s[tid] <= kNegInf ? -INFINITY : m_s[tid] + logf(l_s[tid]);
     return;
   }
   float* part = ws + ((int64_t)(b * gridDim.y + kvh) * gridDim.x + split) *
@@ -218,11 +231,11 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
 
 // Merge the n_split runs of one (head g, kv, b), one thread per output
 // column: rescale each run by exp(m - M), M the largest m, and divide by
-// the rescaled sum of l.
+// the rescaled sum of l (zeros where no run has an admissible slot).
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD) combine_kernel(
-    const float* __restrict__ ws, T* __restrict__ o, int n_split,
-    Strides so) {
+    const float* __restrict__ ws, T* __restrict__ o, float* __restrict__ lse,
+    int n_split, Strides so) {
   const int g = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int G = gridDim.x, stride = part_floats<HD>(G), n_out = G * HD;
   const float* base = ws + (int64_t)(b * gridDim.y + kvh) * n_split * stride;
@@ -236,8 +249,11 @@ __global__ void __launch_bounds__(HD) combine_kernel(
     L = fmaf(part[n_out + G + g], w, L);
     O = fmaf(part[g * HD + d], w, O);
   }
+  const bool empty = M <= kNegInf;
   o[b * so.b + kvh * so.h + g * so.t + d * so.d] =
-      from_float<T>(O / fmaxf(L, 1e-30f));
+      from_float<T>(empty ? 0.f : O / fmaxf(L, 1e-30f));
+  if (lse && d == 0)
+    lse[(b * gridDim.y + kvh) * G + g] = empty ? -INFINITY : M + logf(L);
 }
 
 // ---------------------------------------------------------------------------
@@ -276,9 +292,10 @@ template <int HD>
 __global__ void __launch_bounds__(DNT) decode_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ ws, int* __restrict__ counters,
-    const int* __restrict__ k_pos, int pos, int S, int G, int split_len,
-    float scale_log2, Strides sq, Strides sk, Strides sv, Strides so) {
+    float* __restrict__ lse, float* __restrict__ ws,
+    int* __restrict__ counters, const int* __restrict__ k_pos, int pos,
+    int S, int G, int split_len, float scale_log2, Strides sq, Strides sk,
+    Strides sv, Strides so) {
   using D = DCfg<HD>;
   using bf16 = __nv_bfloat16;
   constexpr int C = D::C, LD = D::LD, KS = D::KS, NT = D::NT;
@@ -492,7 +509,12 @@ __global__ void __launch_bounds__(DNT) decode_bf16_kernel(
       r[7] = fmaf(f, c4.w, r[7]);
     }
     if (n_split == 1) {
-      const float inv = 1.f / fmaxf(L, 1e-30f);
+      // M in log2 units; kNegInf only where every slot was masked
+      const bool empty = M <= kNegInf;
+      const float inv = empty ? 0.f : 1.f / fmaxf(L, 1e-30f);
+      if (lse && cc == 0)
+        lse[(b * KV + kvh) * G + gg] =
+            empty ? -INFINITY : (M + log2f(L)) * kLn2;
       uint4 out;
       out.x = pack_bf16x2(r[0] * inv, r[1] * inv);
       out.y = pack_bf16x2(r[2] * inv, r[3] * inv);
@@ -535,14 +557,18 @@ __global__ void __launch_bounds__(DNT) decode_bf16_kernel(
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
-    const float e0 = on0 ? exp2f(m0 - M) : 0.f;
-    const float e1 = on1 ? exp2f(m1 - M) : 0.f;
+    const bool empty = M <= kNegInf;   // no run has an admissible slot
+    const float e0 = on0 && !empty ? exp2f(m0 - M) : 0.f;
+    const float e1 = on1 && !empty ? exp2f(m1 - M) : 0.f;
     float Lsum = (on0 ? lw[lane][gg] * e0 : 0.f) +
                  (on1 ? lw[lane + 32][gg] * e1 : 0.f);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       Lsum += __shfl_xor_sync(0xffffffffu, Lsum, off);
     const float inv = 1.f / fmaxf(Lsum, 1e-30f);
+    if (lse && lane == 0)
+      lse[(b * KV + kvh) * G + gg] =
+          empty ? -INFINITY : (M + log2f(Lsum)) * kLn2;
     if (on0) mw[lane][gg] = e0 * inv;
     if (on1) mw[lane + 32][gg] = e1 * inv;
   }
@@ -577,10 +603,11 @@ __global__ void __launch_bounds__(DNT) decode_bf16_kernel(
 
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        float* ws, int* counters, const int* k_pos, int pos,
-                        int B, int KV, int G, int S, int n_split,
-                        int split_len, float scale, Strides sq, Strides sk,
-                        Strides sv, Strides so, cudaStream_t stream) {
+                        float* lse, float* ws, int* counters,
+                        const int* k_pos, int pos, int B, int KV, int G, int S,
+                        int n_split, int split_len, float scale, Strides sq,
+                        Strides sk, Strides sv, Strides so,
+                        cudaStream_t stream) {
   static unsigned long long done = 0;
   cudaError_t err = set_smem_once(decode_bf16_kernel<HD>,
                                   bf16_smem_bytes<HD>(), &done);
@@ -590,48 +617,50 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      ws, counters, k_pos, pos, S, G, split_len, scale * 1.4426950408889634f,
-      sq, sk, sv, so);
+      lse, ws, counters, k_pos, pos, S, G, split_len,
+      scale * 1.4426950408889634f, sq, sk, sv, so);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* ws, const int* k_pos, int pos, int B, int KV,
-                       int G, int S, int n_split, int split_len, float scale,
-                       Strides sq, Strides sk, Strides sv, Strides so,
-                       cudaStream_t stream) {
+                       float* lse, float* ws, const int* k_pos, int pos,
+                       int B, int KV, int G, int S, int n_split,
+                       int split_len, float scale, Strides sq, Strides sk,
+                       Strides sv, Strides so, cudaStream_t stream) {
   static unsigned long long done = 0;
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = set_smem_once(decode_kernel<float, HD>, smem, &done);
   if (err != cudaSuccess) return err;
   decode_kernel<float, HD><<<dim3(n_split, KV, B), DNT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), ws, k_pos, pos, S,
-      G, split_len, scale, sq, sk, sv, so);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, ws, k_pos,
+      pos, S, G, split_len, scale, sq, sk, sv, so);
   if ((err = cudaGetLastError()) != cudaSuccess || n_split == 1) return err;
   combine_kernel<float, HD><<<dim3(G, KV, B), HD, 0, stream>>>(
-      ws, static_cast<float*>(o), n_split, so);
+      ws, static_cast<float*>(o), lse, n_split, so);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* o, float* ws, int* counters, const int* k_pos,
-                   int pos, int B, int KV, int G, int S, int n_split,
-                   int split_len, float scale, Strides sq, Strides sk,
-                   Strides sv, Strides so, cudaStream_t stream) {
+                   void* o, float* lse, float* ws, int* counters,
+                   const int* k_pos, int pos, int B, int KV, int G, int S,
+                   int n_split, int split_len, float scale, Strides sq,
+                   Strides sk, Strides sv, Strides so, cudaStream_t stream) {
   if (dtype == kBFloat16)
-    return launch_bf16<HD>(q, k, v, o, ws, counters, k_pos, pos, B, KV, G, S,
-                           n_split, split_len, scale, sq, sk, sv, so, stream);
-  return launch_f32<HD>(q, k, v, o, ws, k_pos, pos, B, KV, G, S, n_split,
+    return launch_bf16<HD>(q, k, v, o, lse, ws, counters, k_pos, pos, B, KV,
+                           G, S, n_split, split_len, scale, sq, sk, sv, so,
+                           stream);
+  return launch_f32<HD>(q, k, v, o, lse, ws, k_pos, pos, B, KV, G, S, n_split,
                         split_len, scale, sq, sk, sv, so, stream);
 }
 
 }  // namespace
 
 // q [B, KV, G, hd], k and v [B, KV, S, hd], o [B, KV, G, hd], each given by
-// its element strides; k_pos [S] int32, contiguous; pos the decode position.
+// its element strides; lse null or [B, KV, G] f32, contiguous; k_pos [S]
+// int32, contiguous; pos the decode position.
 // The cache is cut into n_split runs of split_len slots (a multiple of 64,
 // n_split * split_len >= S > (n_split - 1) * split_len, n_split <= 64);
 // with n_split > 1, ws holds B * KV * n_split * (G * hd + 4 ceil(G / 2))
@@ -641,8 +670,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 // for f32) and returns cudaGetLastError().
 EXPORT int decode_attention_fwd(
     int dtype, int hd, const void* q, const void* k, const void* v, void* o,
-    void* ws, void* counters, const int* k_pos, int pos, int B, int KV, int G,
-    int S, int n_split, int split_len, float scale,
+    void* lse, void* ws, void* counters, const int* k_pos, int pos, int B,
+    int KV, int G, int S, int n_split, int split_len, float scale,
     int64_t sq_b, int64_t sq_h, int64_t sq_t, int64_t sq_d,
     int64_t sk_b, int64_t sk_h, int64_t sk_t, int64_t sk_d,
     int64_t sv_b, int64_t sv_h, int64_t sv_t, int64_t sv_d,
@@ -654,6 +683,7 @@ EXPORT int decode_attention_fwd(
       (n_split > 1 && (!ws || (dtype == kBFloat16 && !counters))) ||
       (dtype != kFloat32 && dtype != kBFloat16))
     return cudaErrorInvalidValue;
+  float* lsef = static_cast<float*>(lse);
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   const Strides sq{sq_b, sq_h, sq_t, sq_d}, sk{sk_b, sk_h, sk_t, sk_d};
@@ -661,17 +691,17 @@ EXPORT int decode_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return launch<32>(dtype, q, k, v, o, wsf, cnt, k_pos, pos, B, KV, G, S,
-                        n_split, split_len, scale, sq, sk, sv, so, st);
+      return launch<32>(dtype, q, k, v, o, lsef, wsf, cnt, k_pos, pos, B, KV,
+                        G, S, n_split, split_len, scale, sq, sk, sv, so, st);
     case 64:
-      return launch<64>(dtype, q, k, v, o, wsf, cnt, k_pos, pos, B, KV, G, S,
-                        n_split, split_len, scale, sq, sk, sv, so, st);
+      return launch<64>(dtype, q, k, v, o, lsef, wsf, cnt, k_pos, pos, B, KV,
+                        G, S, n_split, split_len, scale, sq, sk, sv, so, st);
     case 112:
-      return launch<112>(dtype, q, k, v, o, wsf, cnt, k_pos, pos, B, KV, G,
-                         S, n_split, split_len, scale, sq, sk, sv, so, st);
+      return launch<112>(dtype, q, k, v, o, lsef, wsf, cnt, k_pos, pos, B, KV,
+                         G, S, n_split, split_len, scale, sq, sk, sv, so, st);
     case 128:
-      return launch<128>(dtype, q, k, v, o, wsf, cnt, k_pos, pos, B, KV, G,
-                         S, n_split, split_len, scale, sq, sk, sv, so, st);
+      return launch<128>(dtype, q, k, v, o, lsef, wsf, cnt, k_pos, pos, B, KV,
+                         G, S, n_split, split_len, scale, sq, sk, sv, so, st);
     default:
       return cudaErrorInvalidValue;
   }

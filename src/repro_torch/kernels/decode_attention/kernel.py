@@ -13,7 +13,10 @@ RUNS_PER_SM runs (flash-decoding). The runs are merged in the same launch
 for bf16 (the last block of a group to finish merges, counted in an int32
 buffer per device and stream that the kernel leaves at zero) and by a
 second kernel for f32. The wrapper picks the cut and allocates the
-merge's f32 workspace.
+merge's f32 workspace. With `return_lse` the kernel also writes each
+group's log-sum-exp of its scaled scores ([B,KV,G] f32, -inf where no
+slot is admissible), which a caller merging results over disjoint slot
+ranges weighs them by.
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ RUNS_PER_SM = 8    # runs (blocks) per SM the cut aims at
 MAX_SPLIT = 64     # most runs per (b, kv) group (MAX_SPLIT in the source)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _I, _F, *([_L] * 16), _P]
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, _F, *([_L] * 16), _P]
 
 
 @functools.cache
@@ -124,10 +127,12 @@ def _merge_counters(device: torch.device, stream: int,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     k_pos: torch.Tensor, pos: int) -> torch.Tensor:
+                     k_pos: torch.Tensor, pos: int, *,
+                     return_lse: bool = False):
     """q [B,KV,G,hd]; k, v [B,KV,S,hd]; k_pos [S] int32; pos an int. All
     on one CUDA device, any strides with a unit last one. Returns
-    [B,KV,G,hd] in q's dtype, laid out in memory like q."""
+    [B,KV,G,hd] in q's dtype, laid out in memory like q (zeros for a group
+    with no admissible slot); with `return_lse`, (that, lse [B,KV,G] f32)."""
     pos = int(pos)
     _check(q, k, v, k_pos, pos)
     B, KV, G, hd = q.shape
@@ -135,6 +140,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_split, split_len = split(B, KV, S, _n_sm(q.device))
     out = torch.empty_like(q)
     check_aligned("decode_attention", out=out)
+    lse = (torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ws = cnt = None
     if n_split > 1:
@@ -145,7 +152,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _entry()(
             DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             None if cnt is None else cnt.data_ptr(),
             k_pos.data_ptr(), pos, B, KV, G, S, n_split, split_len,
             hd ** -0.5,
@@ -154,4 +162,4 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return (out, lse) if return_lse else out

@@ -15,11 +15,14 @@ from .ref import decode_attention_ref
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_pos: torch.Tensor | None = None,
-                     pos: int | None = None) -> torch.Tensor:
+                     pos: int | None = None, return_lse: bool = False):
     """q [B,KV,G,hd]; k, v [B,KV,S,hd]; k_pos [S] int32 slot -> position
     (default 0..S-1); pos the current position (default S-1). Any
     strides: pass the model's [B,S,KV,hd] cache as a `.transpose(1, 2)`
-    view. For a CUDA tensor this launches the kernel or raises; only a
+    view. Returns [B,KV,G,hd] in q's dtype, zeros for a group with no
+    admissible slot; with `return_lse`, (that, lse [B,KV,G] f32), the
+    log-sum-exp of the group's scaled scores, -inf where it has none.
+    For a CUDA tensor this launches the kernel or raises; only a
     CPU tensor takes the plain version. It has no backward: on CUDA
     it raises NotImplementedError when a gradient is asked of it."""
     S = k.shape[2]
@@ -28,11 +31,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pos is None:
         pos = S - 1
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, k_pos, pos)
+        return decode_attention_ref(q, k, v, k_pos, pos, return_lse)
     refuse_grad("decode_attention", "decoding is not trained (no training "
                 "path decodes, and the reference's Pallas kernel has no "
                 "VJP either)", q, k, v)
-    out = kernel.decode_attention(q, k, v, k_pos, pos)
+    out = kernel.decode_attention(q, k, v, k_pos, pos,
+                                  return_lse=return_lse)
     decode_attention.launches += 1
     return out
 

@@ -21,7 +21,10 @@ the in-place cache writes run on each rank's local shards through
 divides; over `model`, the query rows under `seq_shard_attention` where T
 divides (the keys and values replicated, each shard reading its own query
 positions), else whole KV heads where they divide, else replicated, since a
-kernel needs whole heads and whole caches.
+kernel needs whole heads. A decode cache that the rules split on its slots
+(KV heads that do not divide `model`) stays split: each rank attends over
+its own slots and the partial softmaxes are merged by their log-sum-exps
+(`merge_decode_parts`), as GSPMD runs the reference's decode there.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import is_dtensor
 from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.decode_attention.ref import decode_attention_ref
 from ..kernels.flash_attention.ops import flash_attention
 from ..parallel.sharding import batch_spec
 from .config import ModelConfig
@@ -297,14 +301,18 @@ def _sharded_prefill(q, k, v, q_pos, k_pos, window: int, use_kernels: bool,
 
 
 def decode_key_positions(S: int, pos0: int, window: int,
-                         device: torch.device | str | None = None
+                         device: torch.device | str | None = None,
+                         start: int = 0, length: int | None = None
                          ) -> torch.Tensor:
     """[S] int32: the absolute position each cache slot holds once position
     `pos0` is written, EMPTY_SLOT for a slot never written. With a window,
     slots that fell out of it are marked empty too, because the decode
     kernel masks only k_pos > pos. The map is the same for every layer of
-    a decode step."""
-    slots = torch.arange(S, dtype=torch.int32, device=device)
+    a decode step. `start`, `length`: the map of slots start .. start +
+    length of the S only (one rank's shard), in a tensor of its own."""
+    length = S - start if length is None else length
+    slots = torch.arange(start, start + length, dtype=torch.int32,
+                         device=device)
     if window > 0 and S == window:
         # Absolute position stored in ring slot s: the largest
         # p <= pos0 with p % S == s; negative -> never written.
@@ -318,28 +326,84 @@ def decode_key_positions(S: int, pos0: int, window: int,
 
 
 def _decode_attention(q, kc, vc, pos: int, k_pos, window: int,
-                      use_kernels: bool) -> torch.Tensor:
+                      use_kernels: bool, return_lse: bool = False):
     """One query position `pos` against the cache. q [B,1,H,hd]; kc, vc
-    [B,S,KV,hd]; k_pos [S] int32 from `decode_key_positions`."""
+    [B,S,KV,hd]; k_pos [S] int32 from `decode_key_positions`. With
+    `return_lse`, (out, lse [B,1,H] f32), the kernel's or its plain
+    version's, for a merge over slot ranges."""
     B, _, H, hd = q.shape
     KV = kc.shape[2]
+    args = (q.reshape(B, KV, H // KV, hd), kc.transpose(1, 2),
+            vc.transpose(1, 2), k_pos, pos)
+    if return_lse:
+        out, lse = (decode_attention if use_kernels else decode_attention_ref)(
+            *args, return_lse=True)
+        return out.reshape(B, 1, H, hd), lse.reshape(B, 1, H)
     if not use_kernels:
         q_pos = torch.full((1,), pos, dtype=k_pos.dtype, device=q.device)
         return attention(q, kc, vc, q_pos, k_pos, window=window)
-    out = decode_attention(q.reshape(B, KV, H // KV, hd), kc.transpose(1, 2),
-                           vc.transpose(1, 2), k_pos, pos)
-    return out.reshape(B, 1, H, hd)
+    return decode_attention(*args).reshape(B, 1, H, hd)
+
+
+def merge_decode_parts(o: torch.Tensor, lse: torch.Tensor,
+                       dim: int | None = None, mesh=None,
+                       mesh_dims: tuple[int, ...] = ()) -> torch.Tensor:
+    """The attention over a union of disjoint slot ranges from its parts
+    over each range: o [..., hd] and lse [...] (o's dims but the last),
+    each part's output and log-sum-exp (-inf, with o zero, for a range
+    with no admissible slot). The parts are stacked on dim `dim` of both,
+    or, with no `dim`, held one a rank over `mesh_dims` of `mesh` (the
+    mesh dims that split the cache's slots). In f32: M = max lse, w =
+    exp(lse - M), out = sum(o w) / sum(w); zeros where every part is
+    empty. Over a mesh: an all-reduce of the max, then one all-reduce of
+    o w and w packed together, per mesh dim. Returns f32."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def reduce(t, op: str):
+        if dim is not None:
+            return t.amax(dim) if op == "max" else t.sum(dim)
+        for i in mesh_dims:
+            if mesh.size(i) > 1:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+        return t
+    lse = lse.float()
+    m = reduce(lse, "max")
+    m = torch.where(m > -torch.inf, m, 0.0)    # all parts empty: w = 0
+    w = torch.exp(lse - (m if dim is None else m.unsqueeze(dim)))
+    ow = reduce(torch.cat([o.float() * w[..., None], w[..., None]], -1),
+                "sum")
+    return ow[..., :-1] / ow[..., -1:].clamp_min(1e-30)
 
 
 def _sharded_decode(q, kc, vc, pos: int, k_pos, window: int,
                     use_kernels: bool):
-    """`_decode_attention` on a DTensor q and cache, rank by rank."""
+    """`_decode_attention` on a DTensor q and cache, rank by rank. Over a
+    mesh dim that splits the cache's slots (dim 1), q is replicated, each
+    rank attends over its own slots with their key positions, and the
+    parts are merged there (`merge_decode_parts`); no rank gathers the
+    cache."""
+    from torch.distributed.tensor import Replicate, Shard
     mesh = q.device_mesh
     qp, kvp, _ = _placements(mesh, q.shape[0], kc.shape[2])
+    slot_dims = tuple(i for i, p in enumerate(kc.placements)
+                      if p.is_shard(1))
+    qp = tuple(Replicate() if i in slot_dims else p for i, p in enumerate(qp))
+    kvp = tuple(Shard(1) if i in slot_dims else p
+                for i, p in enumerate(kvp))
+    if slot_dims:
+        k_pos = decode_key_positions(kc.shape[1], pos, window, k_pos.device,
+                                     _shard_start(kc, 1),
+                                     kc.to_local().shape[1])
 
-    def fn(q, kc, vc, k_pos):
-        return _decode_attention(q, kc, vc, pos, k_pos, window, use_kernels)
-    return _local_map(fn, (qp,), (qp, kvp, kvp, None), mesh)(q, kc, vc, k_pos)
+    def fn(q, kc, vc):
+        if not slot_dims:
+            return _decode_attention(q, kc, vc, pos, k_pos, window,
+                                     use_kernels)
+        o, lse = _decode_attention(q, kc, vc, pos, k_pos, window,
+                                   use_kernels, return_lse=True)
+        return merge_decode_parts(o, lse, mesh=mesh,
+                                  mesh_dims=slot_dims).to(q.dtype)
+    return _local_map(fn, (qp,), (qp, kvp, kvp), mesh)(q, kc, vc)
 
 
 def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,

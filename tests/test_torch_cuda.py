@@ -250,7 +250,7 @@ def test_decode_kernel_split_extremes(dev, B, KV, G, S, hd, n_split, dtype):
 @pytest.mark.parametrize("hd,G", [(112, 1), (128, 16), (64, 7), (128, 1)])
 def test_decode_kernel_ring_and_sentinel_wide(dev, hd, G):
     """A ring cache's slot -> position map with empty (2**30) slots, and
-    one where every slot is empty (uniform average over the cache)."""
+    one where every slot is empty: zeros, as the plain version gives."""
     rng = np.random.default_rng(hd + G)
     B, KV, S = 2, 2, 300
     q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
@@ -263,7 +263,100 @@ def test_decode_kernel_ring_and_sentinel_wide(dev, hd, G):
     for k_pos in (ring, np.full(S, 2 ** 30)):
         kp = torch.from_numpy(k_pos.astype(np.int32)).to(dev)
         got = decode_attention(q, k, v, kp, last)
-        _assert_matches(got, decode_attention_ref(*_f32(q, k, v), kp, last))
+        want = decode_attention_ref(*_f32(q, k, v), kp, last)
+        if (k_pos <= last).any():
+            _assert_matches(got, want)
+        else:
+            assert torch.equal(got.float(), want)
+            assert torch.equal(want, torch.zeros_like(want))
+
+
+def _lse_maps(S: int, pos: int):
+    """Slot -> position maps over S slots at `pos`, by name: a flat cache
+    written up to pos, a ring with empty (2**30) slots, and every slot
+    empty."""
+    rng = np.random.default_rng(S + pos)
+    ring = pos - ((pos - np.arange(S)) % S)
+    ring[rng.choice(S, size=S // 5, replace=False)] = 2 ** 30
+    flat = np.where(np.arange(S) <= pos, np.arange(S), 2 ** 30)
+    return dict(flat=flat, ring=ring, empty=np.full(S, 2 ** 30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,KV,S", [(33, 32, 300), (2, 3, 777)],
+                         ids=["one_run", "runs"])
+@pytest.mark.parametrize("G", [1, 2, 7, 8, 16])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_lse(dev, B, KV, S, G, hd, dtype):
+    """The kernel's log-sum-exp output against the plain version's, at
+    2e-5 in both dtypes (the scores are f32 sums of exact products), with
+    one run per group (33 x 32 groups fill the card) and with many runs
+    merged (the folded merge in bf16, the combine kernel in f32), over a
+    flat map with trailing unwritten slots, a ring with empty slots, and a
+    map with no admissible slot (zeros and -inf, no NaN). The output
+    equals the call's without the lse."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    n_split = dk.split(B, KV, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0]
+    assert (n_split == 1) == (B * KV > 1000), n_split
+    rng = np.random.default_rng(G * 100 + hd)
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+                         ).to(dev, dtype)
+    k = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    pos = S - S // 4
+    for name, k_pos in _lse_maps(S, pos).items():
+        kp = torch.from_numpy(k_pos.astype(np.int32)).to(dev)
+        out, lse = decode_attention(q, k, v, kp, pos, return_lse=True)
+        want, want_lse = decode_attention_ref(*_f32(q, k, v), kp, pos,
+                                              return_lse=True)
+        assert lse.shape == (B, KV, G) and lse.dtype == torch.float32
+        assert not torch.isnan(lse).any() and not torch.isnan(out).any()
+        torch.testing.assert_close(lse, want_lse, atol=F32_TOL,
+                                   rtol=F32_TOL, msg=name)
+        assert torch.equal(out, decode_attention(q, k, v, kp, pos)), name
+        if name == "empty":
+            assert torch.equal(out, torch.zeros_like(out))
+            assert torch.isneginf(lse).all()
+        else:
+            _assert_matches(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_slot_ranges_merge_to_whole_cache(dev, n, dtype):
+    """kimi-k2's decode group (KV 8, G 8, hd 128) over a ring of 2,048
+    slots cut into n ranges, as a mesh's "model" ranks hold them: the
+    kernel with its lse on each range (its key positions from
+    `decode_key_positions` at the range's start), merged by
+    `merge_decode_parts`, against the plain version over the whole cache;
+    late (every range full) and early (the later ranges empty)."""
+    from repro_torch.models.layers import (decode_key_positions,
+                                           merge_decode_parts)
+    rng = np.random.default_rng(n)
+    B, KV, G, hd, S = 4, 8, 8, 128, 2048
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+                         ).to(dev, dtype)
+    k = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    n0 = decode_attention.launches
+    for pos in (3 * S + 11, S // 3):
+        parts = [decode_attention(
+            q, k[:, :, a:a + S // n], v[:, :, a:a + S // n],
+            decode_key_positions(S, pos, S, dev, start=a, length=S // n),
+            pos, return_lse=True) for a in range(0, S, S // n)]
+        empty = sum(bool(torch.isneginf(lse).all()) for _, lse in parts)
+        assert empty == (0 if pos > S else (S - pos - 1) // (S // n))
+        got = merge_decode_parts(torch.stack([o for o, _ in parts]),
+                                 torch.stack([lse for _, lse in parts]),
+                                 dim=0)
+        assert not torch.isnan(got).any()
+        kp = decode_key_positions(S, pos, S, dev)
+        _assert_matches(got.to(dtype),
+                        decode_attention_ref(*_f32(q, k, v), kp, pos))
+    assert decode_attention.launches == n0 + 2 * n
 
 
 @pytest.mark.cuda

@@ -32,9 +32,12 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(REPO, "experiments", "dryrun_results_torch.json")
 # qwen2-0.5b's forward loss at 4 layers on a (2, 4) mesh, tokens [8, 256]:
-# the port runs attention on every "model" rank (its 2 KV heads do not
-# divide 4, so the kernels' placements replicate whole heads), where
-# GSPMD splits the attention's heads; the port's count is the larger.
+# the port runs prefill attention on every "model" rank (its 2 KV heads do
+# not divide 4, so the kernels' placements replicate whole heads), where
+# GSPMD splits part of it on this small mesh: the port's count is the
+# larger, 1.065x. At the production meshes GSPMD replicates that attention
+# too (kimi-k2 prefill_32k at 1 layer on 16x16: 7.578e13 flops a device in
+# both programs).
 FLOP_TOL = 0.10
 
 
@@ -354,6 +357,87 @@ def test_split_layer_stack_is_gathered_once_per_step():
         assert got[f"{kind}8False"][0] <= 2 * got[f"{kind}4False"][0], got
         for n in (4, 8):
             assert got[f"{kind}{n}True"] == got[f"{kind}{n}False"], got
+
+
+# decode_32k at 2 layers on the single-pod production mesh (16x16): the
+# port's dry-run row on 256 fake ranks, the reference's HLO count on 256
+# host devices (its `run_one` decode branch at the cut depth).
+SLOT_DECODE_ARCHS = ("kimi-k2-1t-a32b", "qwen2-72b")
+
+_PORT_DECODE = """
+    import dataclasses, json
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import shape_case
+    dryrun.init_fake_world(256)
+    mesh = make_production_mesh(device="cpu")
+    case = shape_case("decode_32k")
+    out = {}
+    for arch in ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        r = dryrun.row(arch, case.name, False, cfg, case, mesh)
+        out[arch] = dict(flops=r["hlo_flops_per_device"],
+                         collective_bytes=r["collective_bytes_per_device"])
+    print(json.dumps(out))
+"""
+
+_REF_DECODE = """
+    import dataclasses, json
+    import jax
+    from repro.analysis.hlo_stats import analyze
+    from repro.configs import get_config
+    from repro.launch.mesh import make_production_mesh
+    from repro.launch.specs import input_specs, params_specs, shape_case
+    from repro.models import decoder
+    from repro.parallel import sharding as shd
+    mesh = make_production_mesh()
+    case = shape_case("decode_32k")
+    out = {}
+    for arch in ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        p_shapes = params_specs(cfg)
+        p_shard = shd.to_shardings(shd.param_specs(p_shapes, mesh), mesh)
+        inputs = input_specs(cfg, case)
+        cache_shard = shd.to_shardings(
+            shd.cache_specs(inputs["cache"], mesh), mesh)
+        tok_shard = jax.sharding.NamedSharding(
+            mesh, shd.batch_spec(mesh, inputs["tokens"].shape))
+        with mesh:
+            f = jax.jit(lambda p, c, t, pos, cfg=cfg: decoder.decode_step(
+                p, cfg, c, t, pos),
+                in_shardings=(p_shard, cache_shard, tok_shard, None),
+                out_shardings=(None, cache_shard), donate_argnums=(1,))
+            compiled = f.lower(p_shapes, inputs["cache"], inputs["tokens"],
+                               inputs["pos"]).compile()
+        s = analyze(compiled.as_text())
+        out[arch] = dict(flops=s.flops, collective_bytes=s.collective_bytes)
+    print(json.dumps(out))
+"""
+
+
+def test_slot_split_decode_matches_reference():
+    """kimi-k2 (64 heads, 8 KV) and qwen2-72b (64, 8) decode_32k at 2
+    layers on the 16x16 mesh: 8 KV heads do not divide the 16 "model"
+    ranks, so both rule sets split the attention cache on its slots. Each
+    rank attends over its own slots and the parts are merged by their
+    log-sum-exps, as GSPMD runs the reference's attention there: the
+    port's flops are within 1 % of the reference's HLO count and its
+    collective bytes at most the reference's. Gathering the cache to every
+    "model" rank, each rank attending over all of it, counts 2.50x and
+    4.95x the reference's flops, and at kimi-k2 1.36x its collective
+    bytes."""
+    pytest.importorskip("jax")
+    archs = repr(SLOT_DECODE_ARCHS)
+    got = _last_json(_run(_PORT_DECODE.replace("ARCHS", archs)))
+    ref = _last_json(_run(_REF_DECODE.replace("ARCHS", archs), {
+        "XLA_FLAGS": "--xla_force_host_platform_device_count=256",
+        "JAX_PLATFORMS": "cpu"}))
+    for arch in SLOT_DECODE_ARCHS:
+        g, r = got[arch], ref[arch]
+        assert r["flops"] > 1e9 and g["collective_bytes"] > 0, (arch, g, r)
+        assert abs(g["flops"] / r["flops"] - 1) <= 0.01, (arch, g, r)
+        assert g["collective_bytes"] <= r["collective_bytes"], (arch, g, r)
 
 
 @pytest.fixture(scope="module")

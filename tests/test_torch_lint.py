@@ -217,6 +217,9 @@ INJECT = {
         "models/decoder.py", DECODER,
         "    h = _run_layers(params, cfg, x, cache, int(pos), use_kernels)\n",
         "    n = tokens.max().item()\n", "RPR402"),
+    "merge_decode_parts .item()": (
+        "models/layers.py", "x/repro_torch/models/layers.py",
+        "    lse = lse.float()\n", "    n = lse.max().item()\n", "RPR402"),
     "_pdhg_block torch.float32": (
         "risk/solver.py", "x/repro_torch/risk/solver.py",
         "    tau = tau0 / omega[:, None]\n",

@@ -438,6 +438,113 @@ def test_sharded_decoder_equals_reference(tmp_path, model, kv):
                                        err_msg=arch)
 
 
+def _slot_decode_worker(rank, world, store, inp, out):
+    """Prefill and 3 decode steps of each case of `SLOT_CASES` on a (1, 4)
+    mesh, whose "model" axis splits the cache's slots."""
+    _init(rank, world, store)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.analysis.op_stats import OpCounter
+    from repro_torch.models.weights import params_from_numpy
+    from repro_torch.parallel.sharding import distribute_params
+
+    res = {}
+    with np.load(inp) as f:
+        data = dict(f)
+    mesh = make_host_mesh(4, device="cpu")
+    toks = torch.from_numpy(data["tokens"])
+    T = toks.shape[1]
+    for name, window in SLOT_CASES:
+        cfg = dataclasses.replace(_smoke_cfg(2), sliding_window=window)
+        weights = _tree({k[2:]: v for k, v in data.items()
+                         if k.startswith("p/")})
+        sp = distribute_params(params_from_numpy(weights, cfg, "cpu"), mesh)
+        gathered, placements = [], []
+        with torch.no_grad():
+            lg, cache = decoder.prefill(sp, cfg, toks, max_len=SLOT_MAX_LEN)
+            steps = [lg]
+            for s, nt in enumerate(data["decode_tokens"]):
+                with OpCounter() as c:
+                    lg, cache = decoder.decode_step(
+                        sp, cfg, cache, torch.from_numpy(nt), T + s)
+                gathered.append(c.stats.collectives.get("all-gather", 0.0))
+                steps.append(lg)
+                placements.append([  # dim 2 of [L, B, S, KV, hd]: slots
+                    [p.is_shard(2) for p in t.placements]
+                    for t in cache["layers"] if isinstance(t, DTensor)])
+        res[f"logits_{name}"] = torch.stack([x.full_tensor() for x in steps])
+        res[f"gathered_{name}"] = torch.tensor(gathered)
+        res[f"placements_{name}"] = np.array(placements)
+        res[f"slots_{name}"] = torch.tensor(
+            cache["layers"][0].to_local().shape[2])
+    if rank == 0:
+        np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+    dist.destroy_process_group()
+
+
+# The slot-split decode: (case, sliding window) of qwen2-1.5b smoke with
+# 2 KV heads on (data, model) = (1, 4), a cache of SLOT_MAX_LEN positions.
+SLOT_CASES = (("flat", 0), ("ring", 16))
+SLOT_MAX_LEN = 32
+
+
+def test_slot_split_decode_equals_reference(tmp_path):
+    """qwen2-1.5b smoke in f32, 2 KV heads, on 4 gloo ranks as (data,
+    model) = (1, 4): the heads do not divide "model", so the rules split
+    each cache on its slots, and each rank attends over its own and the
+    parts are merged by their log-sum-exps. A flat cache of 32 slots
+    after a 16-token prompt (during the 3 decode steps the fourth rank's
+    8 slots are all empty, the third's partly), and a ring of
+    `sliding_window` 16 slots, 4 a rank, that the decode steps wrap. The
+    prefill logits and 3 decode steps equal the reference's unsharded
+    ones at 1e-5; after every step both caches are still split on their
+    slots over "model", and no step all-gathers as many bytes as one
+    layer's whole key cache (the parent gathered both caches of every
+    layer at every step)."""
+    jax, _ = _ref()
+    from repro.configs import get_config as ref_get_config
+    from repro.models import decoder as ref_decoder
+    rng = np.random.default_rng(5)
+    B, T = 2, 16
+    base = dataclasses.replace(ref_get_config("qwen2-1.5b").smoke(),
+                               n_kv_heads=2)
+    params = jax.tree.map(np.asarray, ref_decoder.init_params(
+        jax.random.PRNGKey(0), base))
+    toks = rng.integers(0, base.vocab_size, (B, T)).astype(np.int64)
+    dec = rng.integers(0, base.vocab_size, (3, B, 1)).astype(np.int64)
+    want = {}
+    for name, window in SLOT_CASES:
+        ref_cfg = dataclasses.replace(base, sliding_window=window)
+        lg, cache = ref_decoder.prefill(params, ref_cfg, toks,
+                                        max_len=SLOT_MAX_LEN)
+        steps = [np.asarray(lg)]
+        for s in range(3):
+            lg, cache = ref_decoder.decode_step(params, ref_cfg, cache,
+                                                dec[s], T + s)
+            steps.append(np.asarray(lg))
+        want[name] = np.stack(steps)
+    inp, out = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(inp, tokens=toks, decode_tokens=dec,
+             **{"p/" + "/".join(p): a for p, a in _flat(params).items()})
+    _spawn(_slot_decode_worker, 4, 4, str(tmp_path / "store"), str(inp),
+           str(out))
+    with np.load(out) as f:
+        got = dict(f)
+    cfg = _smoke_cfg(2)
+    for name, window in SLOT_CASES:
+        np.testing.assert_allclose(got[f"logits_{name}"], want[name],
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+        S = min(SLOT_MAX_LEN, window) if window else SLOT_MAX_LEN
+        assert int(got[f"slots_{name}"]) == S // 4, name
+        for step in got[f"placements_{name}"]:
+            assert len(step) == 2, name                    # k and v
+            for pl in step:
+                assert list(pl) == [False, True], (name, pl)   # "model"
+        layer_k = B * S * cfg.n_kv_heads * cfg.hd * 4
+        assert got[f"gathered_{name}"].max() < layer_k, (
+            name, got[f"gathered_{name}"], layer_k)
+
+
 def _stage_fn(sp, x):
     for w in sp:
         x = torch.tanh(x @ w)
