@@ -3550,12 +3550,19 @@ MIXER_TRAIN_B, MIXER_TRAIN_T = 2, 512
 # starts and read at its end.
 DRYRUNS = (("qwen2-72b", "train_4k", False),
            ("kimi-k2-1t-a32b", "decode_32k", True))
-# kimi-k2 decode_32k's row per device while each "model" rank gathered the
-# whole KV cache and attended over all of it (flops, collective bytes;
-# PERF.md section 6), printed beside this run's: constants, kept out of
-# the JSON lines
-DRYRUN_GATHERED_CACHE = {("kimi-k2-1t-a32b", "decode_32k", True):
-                         (8.489e10, 9.265e9)}
+# Rows per device before a change, printed beside this run's (flops,
+# collective bytes, what the step did then; PERF.md section 6): constants,
+# kept out of the JSON lines. kimi-k2 decode_32k while each "model" rank
+# gathered the whole KV cache and attended over all of it; qwen2-72b
+# train_4k while the loss gathered each chunk's whole-batch f32 logits,
+# as this phase printed it under torch 2.11 (torch 2.13's DTensor
+# counted 3.4399e12 collective bytes).
+DRYRUN_BEFORE = {
+    ("kimi-k2-1t-a32b", "decode_32k", True):
+        (8.489e10, 9.265e9, "each model rank gathered the whole KV cache"),
+    ("qwen2-72b", "train_4k", False):
+        (5.6573e15, 9.1424e12, "the loss gathered each chunk's "
+                               "whole-batch logits")}
 # 14.5: the slot-split decode on one card at kimi-k2's per-rank decode_32k
 # shape on 2x16x16: batch 128 over the 32 (pod, data) ranks, 8 KV heads of
 # G 8 at hd 128, the 8,192-slot window's ring cut into the 16 "model"
@@ -3678,13 +3685,12 @@ def finish_dryruns(procs, t0) -> list:
               flush=True)
         print("  " + roofline.markdown_table([a]).splitlines()[-1],
               flush=True)
-        before = DRYRUN_GATHERED_CACHE.get((arch, shape, multi))
+        before = DRYRUN_BEFORE.get((arch, shape, multi))
         if before:
             print(f"  {arch} {shape}: {r['hlo_flops_per_device']:.4e} flops"
                   f" and {r['collective_bytes_per_device']:.4e} collective "
                   f"bytes per device, {before[0]:.4e} and {before[1]:.4e} "
-                  f"when each model rank gathered the whole KV cache",
-                  flush=True)
+                  f"when {before[2]}", flush=True)
         rows.append(dict(row=r, roofline={k: v for k, v in a.items()
                                           if k != "collectives"}))
     print(f"  the dry-runs ended {time.perf_counter() - t0:.1f}s after "

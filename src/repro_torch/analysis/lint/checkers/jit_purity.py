@@ -163,6 +163,13 @@ DEVICE_PROGRAMS: tuple[DeviceProgram, ...] = (
     DeviceProgram("models/decoder.py", ("train_loss",),
                   ("src/repro/training/train_loop.py:40",),
                   "the train step's loss"),
+    DeviceProgram("models/layers.py",
+                  ("chunked_ce_loss", "_VocabParallelNLL.forward",
+                   "_VocabParallelNLL.backward",
+                   "_LossPlan.logits", "_fsdp_gathered", "_all_reduce"),
+                  ("src/repro/training/train_loop.py:40",),
+                  "the train step's loss head; on a mesh each rank's rows "
+                  "and vocabulary slice, the log-sum-exps merged"),
     DeviceProgram("training/optimizer.py",
                   ("apply_updates", "_update", "_pieces", "global_norm",
                    "schedule"),

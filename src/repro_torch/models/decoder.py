@@ -446,10 +446,29 @@ class _BatchLayout(torch.autograd.Function):
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The served logits [B, T, V] (or [B, T, nq, V]). On DTensors they
+    come out as the reference's program returns them: B over the batch
+    axes where it divides, V over "model" where the head splits it, and
+    replicated elsewhere; the head stays where it is: a step's few
+    positions move (gathered over the FSDP axes, the partial logits
+    reduce-scattered onto the batch), not the head. A DTensor's codebook
+    heads are products one by one: DTensor's einsum strategy would move
+    the head to split d over "model"."""
     h = rms_norm(h, params["final_norm"])
+    if not is_dtensor(h):
+        if cfg.n_codebooks:
+            return torch.einsum("btd,qdv->btqv", h, params["head"])
+        return h @ params["head"]
     if cfg.n_codebooks:
-        return torch.einsum("btd,qdv->btqv", h, params["head"])
-    return h @ params["head"]
+        out = torch.stack([h @ w for w in params["head"].unbind(0)], dim=2)
+    else:
+        out = h @ params["head"]
+    from torch.distributed.tensor import Replicate
+    mesh = out.device_mesh
+    pl = [b if b.is_shard() else Replicate() if p.is_partial() else p
+          for b, p in zip(to_placements(batch_spec(mesh, out.shape), mesh),
+                          out.placements)]
+    return out if pl == list(out.placements) else out.redistribute(mesh, pl)
 
 
 # ---------------------------------------------------------------------------

@@ -345,6 +345,16 @@ def _decode_attention(q, kc, vc, pos: int, k_pos, window: int,
     return decode_attention(*args).reshape(B, 1, H, hd)
 
 
+def _all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """t all-reduced (`op`: "sum" or "max") over each mesh dim of `dims`
+    that holds more than one rank, in turn."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        if mesh.size(i) > 1:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+    return t
+
+
 def merge_decode_parts(o: torch.Tensor, lse: torch.Tensor,
                        dim: int | None = None, mesh=None,
                        mesh_dims: tuple[int, ...] = ()) -> torch.Tensor:
@@ -357,15 +367,10 @@ def merge_decode_parts(o: torch.Tensor, lse: torch.Tensor,
     exp(lse - M), out = sum(o w) / sum(w); zeros where every part is
     empty. Over a mesh: an all-reduce of the max, then one all-reduce of
     o w and w packed together, per mesh dim. Returns f32."""
-    from torch.distributed import _functional_collectives as funcol
-
     def reduce(t, op: str):
         if dim is not None:
             return t.amax(dim) if op == "max" else t.sum(dim)
-        for i in mesh_dims:
-            if mesh.size(i) > 1:
-                t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
-        return t
+        return _all_reduce(t, op, mesh, mesh_dims)
     lse = lse.float()
     m = reduce(lse, "max")
     m = torch.where(m > -torch.inf, m, 0.0)    # all parts empty: w = 0
@@ -543,8 +548,7 @@ def _chunk_nll(head: torch.Tensor, xc: torch.Tensor,
     then f32, as the reference."""
     logits = (xc @ head).float()                        # [B, c, V]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = (_sharded_gold if is_dtensor(logits) else _gold)(logits, tc)
-    return torch.sum(logz - gold)
+    return torch.sum(logz - _gold(logits, tc))
 
 
 def _gold(logits: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
@@ -562,37 +566,164 @@ def _shard_gold(logits: torch.Tensor, tc: torch.Tensor,
     return torch.where((t >= 0) & (t < V), g, 0.0)
 
 
-def _sharded_gold(logits, tc):
-    """`_gold` on DTensor logits, rank by rank: each reads the targets in
-    its vocabulary shard, and the sum over the ranks that split V (a
-    Partial placement) is the gold logit. Picking entries is linear, so
-    logits that are partial sums give partial sums."""
-    from torch.distributed.tensor import Partial, Replicate
-    mesh, lp = logits.device_mesh, logits.placements
-    tp = tuple(Replicate() if p.is_shard(2) or p.is_partial() else p
-               for p in lp)
-    op = tuple(Partial() if p.is_shard(2) else p for p in lp)
-    fn = functools.partial(_shard_gold, v0=_shard_start(logits, 2))
-    return _local_map(fn, (op,), (lp, tp), mesh)(
-        logits, replicated_like(tc, logits))
+def _fsdp_gathered(head):
+    """DTensor head [d, V] with its split of d over the batch (FSDP) axes
+    gathered and its "model" split kept: once per loss call, where a
+    product with the batch-split activations would move the activations
+    at every chunk. Its gradient, a partial sum over the batch axes, is
+    reduce-scattered back onto that split."""
+    from torch.distributed.tensor import Replicate
+    mesh = head.device_mesh
+    pl = [Replicate() if p.is_shard(0) and name != "model" else p
+          for name, p in zip(mesh.mesh_dim_names, head.placements)]
+    return head if pl == list(head.placements) else head.redistribute(mesh,
+                                                                       pl)
+
+
+class _LossPlan:
+    """How one rank computes a chunk's NLL from its local shards of x
+    [B, c, d] (batch over the batch axes, replicated elsewhere) and of a
+    gathered head [d, V]: the mesh dims that split the
+    batch (`batch`), V (`vocab`: the log-sum-exp and the gold logit are
+    merged there) or d (`rows`: the logits are partial sums there, the
+    fallback where V does not divide "model"); the local_map placements
+    of x, the head and the targets; v0, this rank's first vocabulary
+    entry. Built once per loss call, from the gathered head
+    (`_fsdp_gathered`)."""
+
+    def __init__(self, head, xs):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh = mesh = head.device_mesh
+        self.batch, self.vocab, self.rows, self.split = [], [], [], []
+        self.xp, self.tp = [], []
+        for i, (hp, xp) in enumerate(zip(head.placements, xs.placements)):
+            big = mesh.size(i) > 1
+            if xp.is_shard(0):
+                self.xp.append(Shard(0))
+                self.tp.append(Shard(0))
+                kind = self.batch
+            else:
+                if not xp.is_replicate():
+                    raise ValueError(f"loss activations placed {xs.placements}"
+                                     f": want the batch layout")
+                self.xp.append(Shard(2) if hp.is_shard(0) else Replicate())
+                self.tp.append(Replicate())
+                kind = (self.rows if hp.is_shard(0) else
+                        self.vocab if hp.is_shard(1) else None)
+            if big and kind is not None:
+                kind.append(i)
+            self.split.append(big and xp.is_shard(0))
+        self.hp = list(head.placements)
+        self.v0 = _shard_start(head, 1)
+
+    def logits(self, x, head):
+        """The chunk's f32 logits [B_local, c, V_local], from the product
+        in the model's dtype; over `rows` the partial products are summed
+        in f32 and rounded to the model's dtype, as the whole product."""
+        out = (x @ head).float()
+        if self.rows:
+            out = _all_reduce(out, "sum", self.mesh, self.rows)
+            out = out.to(x.dtype).float()
+        return out
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """A chunk's summed NLL on one rank's local shards (`_LossPlan`),
+    whole on every rank: no rank builds the logits of another's rows or
+    vocabulary. Forward: the local logits; over `vocab` an all-reduce of
+    the row maxima, then one of the sums of exponentials and the gold
+    logits packed together, [B_local, c, 2]; the rows' NLL summed and
+    all-reduced over `batch`. Only the log-sum-exps [B_local, c] are kept:
+    the backward recomputes the logits (as the plain path's checkpoint
+    does), forms dlogits = (softmax - onehot) * g on the local slice, and
+    takes dx and dhead through the product's own backward; dx is
+    all-reduced over `vocab` (in f32), dhead stays a partial sum over the
+    batch (the caller's placements reduce-scatter it). Where nothing
+    splits V the arithmetic is the plain path's (`torch.logsumexp` and
+    its backward), so a one-device mesh gives its bits."""
+
+    @staticmethod
+    def forward(ctx, x, head, tc, plan: _LossPlan):
+        logits = plan.logits(x, head)
+        if plan.vocab:
+            m = _all_reduce(logits.amax(-1), "max", plan.mesh, plan.vocab)
+            s = torch.exp(logits - m[..., None]).sum(-1)
+            sg = _all_reduce(torch.stack([s, _shard_gold(logits, tc,
+                                                         plan.v0)], -1),
+                             "sum", plan.mesh, plan.vocab)
+            logz, gold = torch.log(sg[..., 0]) + m, sg[..., 1]
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = _shard_gold(logits, tc, plan.v0)
+        ctx.save_for_backward(x, head, tc, logz)
+        ctx.plan = plan
+        return _all_reduce(torch.sum(logz - gold), "sum", plan.mesh,
+                           plan.batch)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head, tc, logz = ctx.saved_tensors
+        plan = ctx.plan
+        want = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(want[0])
+            hg = head.detach().requires_grad_(want[1])
+            prod = (xg @ hg).float()
+        with torch.no_grad():
+            logits = prod.detach()
+            if plan.rows:
+                logits = _all_reduce(logits, "sum", plan.mesh, plan.rows)
+                logits = logits.to(x.dtype).float()
+            dl = g * torch.exp(logits - logz[..., None])
+            t, V = tc.long() - plan.v0, dl.shape[-1]
+            hit = torch.where((t >= 0) & (t < V), -g, 0.0)
+            dl.scatter_add_(-1, t.clamp(0, V - 1)[..., None], hit[..., None])
+        grads = iter(torch.autograd.grad(
+            prod, [a for a, w in zip((xg, hg), want) if w], dl))
+        dx, dhead = (next(grads) if w else None for w in want)
+        if dx is not None and plan.vocab:
+            dx = _all_reduce(dx.float(), "sum", plan.mesh,
+                             plan.vocab).to(x.dtype)
+        return (None if dx is None else dx.contiguous(),
+                None if dhead is None else dhead.contiguous(), None, None)
 
 
 def chunked_ce_loss(head: torch.Tensor, xs: torch.Tensor,
                     targets: torch.Tensor, chunk: int) -> torch.Tensor:
     """head: [d, V]; xs: [B, S, d]; targets: [B, S] int. Mean NLL over
     chunks of `_pick_chunk(S, chunk)` positions, summed in order into an
-    f32 total as the reference's scan. Under autograd each chunk is
-    checkpointed: its [B, c, V] f32 logits are recomputed in the backward
-    rather than kept (10 GB at B 8, S 2048, V 151,936)."""
+    f32 total as the reference's scan. Under autograd each chunk's [B, c,
+    V] f32 logits are recomputed in the backward rather than kept (10 GB
+    at B 8, S 2048, V 151,936): the plain path checkpoints the chunk.
+    On DTensors (xs in the batch layout, the head as the reference's rule
+    places it) the head is gathered over the FSDP axes once
+    (`_fsdp_gathered`) and each chunk runs on local shards
+    (`_VocabParallelNLL`): every rank's logits are its own rows and its
+    own slice of V, whose log-sum-exps are merged, so no rank builds the
+    whole batch's [B, c, V]."""
     B, S, d = xs.shape
     chunk = _pick_chunk(S, chunk)
     grad = torch.is_grad_enabled() and (xs.requires_grad
                                         or head.requires_grad)
+    sharded = is_dtensor(xs)
+    if sharded:
+        from torch.distributed.tensor import Replicate
+        head = _fsdp_gathered(head)
+        plan = _LossPlan(head, xs)
+        targets = replicated_like(targets, xs)
+        sharded_nll = _local_map(
+            lambda x, h, t: _VocabParallelNLL.apply(x, h, t, plan),
+            ([Replicate()] * plan.mesh.ndim,), (plan.xp, plan.hp, plan.tp),
+            plan.mesh, plan.split)
     total = replicated_like(
         torch.zeros((), dtype=torch.float32, device=xs.device), xs)
     for c0 in range(0, S, chunk):
         xc, tc = xs[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
-        part = (checkpoint(_chunk_nll, head, xc, tc, use_reentrant=False)
-                if grad else _chunk_nll(head, xc, tc))
+        if sharded:
+            part = sharded_nll(xc, head, tc)
+        elif grad:
+            part = checkpoint(_chunk_nll, head, xc, tc, use_reentrant=False)
+        else:
+            part = _chunk_nll(head, xc, tc)
         total = total + part
     return total / (B * S)

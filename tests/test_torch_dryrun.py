@@ -41,13 +41,33 @@ ARTIFACT = os.path.join(REPO, "experiments", "dryrun_results_torch.json")
 FLOP_TOL = 0.10
 
 
+# A torch subprocess's environment and first lines: one intra-op thread,
+# as this module runs, so that the subprocesses do not crowd the cores
+# that the other test workers share.
+ONE_THREAD = dict(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+_ONE_THREAD_CODE = "import torch\ntorch.set_num_threads(1)\n"
+
+
+def _env(extra=None) -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                **(extra or {}))
+
+
 def _run(code: str, env_extra=None, timeout: float = 600.0):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src")
-    env.update(env_extra or {})
-    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
-                          capture_output=True, text=True, timeout=timeout,
-                          env=env)
+    """`code` in a torch subprocess of one intra-op thread."""
+    return subprocess.run(
+        [sys.executable, "-c", _ONE_THREAD_CODE + textwrap.dedent(code)],
+        capture_output=True, text=True, timeout=timeout,
+        env=_env({**ONE_THREAD, **(env_extra or {})}))
+
+
+def _run_ref(code: str, n_devices: int, timeout: float = 600.0):
+    """`code` in a jax subprocess with `n_devices` host devices."""
+    return subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)], capture_output=True,
+        text=True, timeout=timeout, env=_env({
+            "XLA_FLAGS": f"--xla_force_host_platform_device_count="
+                         f"{n_devices}", "JAX_PLATFORMS": "cpu"}))
 
 
 def _last_json(proc) -> dict:
@@ -162,13 +182,14 @@ _PORT_SMOKE = """
     out = {}
     cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=4)
     p = shd.distribute_params(params_specs(cfg), mesh)
-    t = torch.empty(8, 256, dtype=torch.int32, device="meta")
-    c = OpCounter()
-    with c, torch.no_grad():
-        decoder.train_loss(p, cfg, dict(tokens=t, targets=t),
-                           use_kernels=False)
-    out["qwen2-0.5b"] = dict(flops=c.stats.flops,
-                             collective_bytes=c.stats.collective_bytes)
+    for T, name in ((512, "qwen2-0.5b/512"), (256, "qwen2-0.5b")):
+        t = torch.empty(8, T, dtype=torch.int32, device="meta")
+        c = OpCounter()
+        with c, torch.no_grad():
+            decoder.train_loss(p, cfg, dict(tokens=t, targets=t),
+                               use_kernels=False)
+        out[name] = dict(flops=c.stats.flops,
+                         collective_bytes=c.stats.collective_bytes)
     for arch, wide in MOE_RUNS:
         base = get_config(arch)
         cfg = dataclasses.replace(base, n_layers=2, d_ff=base.d_ff * wide)
@@ -180,9 +201,10 @@ _PORT_SMOKE = """
         out[f"{arch}/{wide}"] = dict(flops=c.stats.flops,
                                      collective_bytes=c.stats.collective_bytes)
     case = ShapeCase("train_4k", 256, 8, "train")
-    for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b"):
+    for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b", "qwen2-0.5b"):
         c = dataclasses.replace(get_config(arch), n_layers=2)
-        out[arch] = dryrun.row(arch, "train_4k", False, c, case, mesh)
+        out[arch + "/train"] = dryrun.row(arch, "train_4k", False, c, case,
+                                          mesh)
     print(json.dumps(out))
 """
 
@@ -223,30 +245,41 @@ _REF_MOE = """
 def smoke_rows():
     """The port's side of the smoke, in a subprocess: qwen2-0.5b at 4
     layers, the forward loss on a (2, 4) mesh of 8 fake ranks, tokens
-    [8, 256], as the reference's test; the same for the MoE runs
-    `MOE_RUNS` at 2 layers; and a train step (forward,
-    backward, AdamW) row of rwkv6-7b, zamba2-7b and kimi-k2 at 2 layers
-    on the same mesh, batch [8, 256]."""
+    [8, 256] as the reference's test, and [8, 512]; the same for the MoE
+    runs `MOE_RUNS` at 2 layers, tokens [8, 256]; and a train step
+    (forward, backward, AdamW) row of rwkv6-7b, zamba2-7b, kimi-k2 and
+    qwen2-0.5b at 2 layers on the same mesh, batch [8, 256]."""
     return _last_json(_run(_PORT_SMOKE.replace(
         "MOE_RUNS", repr(MOE_RUNS))))
 
 
-def test_dryrun_smoke_subprocess(smoke_rows):
+@pytest.fixture(scope="module")
+def ref_smoke():
+    """The reference's qwen2-0.5b forward loss of `_REF_SMOKE`."""
+    pytest.importorskip("jax")
+    return _last_json(_run_ref(_REF_SMOKE, 8))
+
+
+@pytest.fixture(scope="module")
+def ref_moe():
+    """The reference's MoE forward losses of `_REF_MOE`."""
+    pytest.importorskip("jax")
+    return _last_json(_run_ref(_REF_MOE, 8))
+
+
+def test_dryrun_smoke_subprocess(smoke_rows, ref_smoke):
     """Flops and collectives on every family; the qwen2-0.5b forward
     within FLOP_TOL of the reference's trip-count-aware HLO count
     (`analysis.hlo_stats.analyze` of the compiled program, per device)."""
-    pytest.importorskip("jax")
-    ref = _last_json(_run(_REF_SMOKE, {
-        "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
-        "JAX_PLATFORMS": "cpu"}))
+    ref = ref_smoke
     got = smoke_rows["qwen2-0.5b"]
     assert got["flops"] > 1e9 and got["collective_bytes"] > 0
     assert ref["flops"] > 1e9 and ref["collective_bytes"] > 0
     ratio = got["flops"] / ref["flops"]
     assert abs(ratio - 1) <= FLOP_TOL, (got, ref, ratio)
     assert ratio >= 1, "the port counts replicated attention, not less"
-    for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b"):
-        r = smoke_rows[arch]
+    for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b", "qwen2-0.5b"):
+        r = smoke_rows[arch + "/train"]
         assert r["status"] == "ok" and r["kind"] == "train", arch
         assert r["hlo_flops_per_device"] > 1e9, arch
         assert r["collective_bytes_per_device"] > 0, arch
@@ -255,17 +288,14 @@ def test_dryrun_smoke_subprocess(smoke_rows):
         assert r["memory"]["temp_bytes"] > 0, arch
 
 
-def test_sharded_moe_flops_match_reference(smoke_rows):
+def test_sharded_moe_flops_match_reference(smoke_rows, ref_moe):
     """kimi-k2 and llama4-scout at 2 layers, the forward loss on the
     (2, 4) mesh: the port's flops within FLOP_TOL of the reference's HLO
     count. Each rank runs its experts over the whole batch's copies
     (the global capacity) on its slice of f, as the reference's GSPMD
     program does; gathering the experts' whole f would run every expert
     product twice over here (1.355x and 1.178x)."""
-    pytest.importorskip("jax")
-    ref = _last_json(_run(_REF_MOE, {
-        "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
-        "JAX_PLATFORMS": "cpu"}))
+    ref = ref_moe
     for arch in ("kimi-k2-1t-a32b", "llama4-scout-17b-a16e"):
         got = smoke_rows[f"{arch}/1"]["flops"]
         ratio = got / ref[arch]["flops"]
@@ -282,6 +312,113 @@ def test_moe_moves_tokens_not_expert_weights(smoke_rows):
                 for w in (1, 2))
     assert one > 0
     assert abs(two / one - 1) <= 0.01, (one, two)
+
+
+# qwen2-0.5b's 2-layer train_4k row of `smoke_rows` (forward, backward,
+# AdamW, batch [8, 256] on the (2, 4) mesh) while the loss gathered every
+# chunk's logits whole: its collective bytes a device, and those of the
+# logits' collectives in it, each chunk's whole-batch f32 [8, 256, V]
+# all-gathered over "model" and all-reduced over "data" in the forward
+# and again in the checkpoint's recompute, and their backward's
+# reduce-scatter [4, 256, V / 4] (an op trace tagged by output shape).
+TRAIN_ROW_GATHERED = 7.417530768e9
+TRAIN_ROW_LOGITS_PAIR = 4 * 1.244659712e9 + 1.55582464e8
+
+
+def test_loss_head_moves_less_than_the_reference(smoke_rows, ref_smoke,
+                                                 ref_moe):
+    """The forward loss on the (2, 4) mesh: the head is gathered over
+    "data" once and each rank keeps its rows and its slice of V, whose
+    log-sum-exps are merged, so qwen2-0.5b (4 layers) counts at most the
+    reference's collective bytes a device and llama4-scout (2 layers)
+    at most 1.25x its (the head's gather, 5.2e8 bytes, is most of it at
+    2,048 tokens). Gathering each chunk's whole-batch f32 logits counted
+    2.584e9 and 3.578e9 (4.7x and 5.0x the reference's)."""
+    got, ref = smoke_rows["qwen2-0.5b"], ref_smoke
+    assert 0 < got["collective_bytes"] <= ref["collective_bytes"], (got, ref)
+    got = smoke_rows["llama4-scout-17b-a16e/1"]
+    ref = ref_moe["llama4-scout-17b-a16e"]
+    assert 0 < got["collective_bytes"] <= 1.25 * ref["collective_bytes"], (
+        got, ref)
+
+
+def test_loss_head_bytes_do_not_grow_with_tokens(smoke_rows):
+    """qwen2-0.5b's forward loss at tokens [8, 512] moves less than 1 %
+    of one chunk's whole f32 logits (8 x 256 x V x 4 bytes) more than at
+    [8, 256]: the head is gathered once a call, and the chunks reduce
+    only [B_local, c] maxima, sums and gold logits (the parent moved two
+    chunks' worth of logits more, 2.49e9 bytes)."""
+    V = get_config("qwen2-0.5b").vocab_size
+    more = (smoke_rows["qwen2-0.5b/512"]["collective_bytes"]
+            - smoke_rows["qwen2-0.5b"]["collective_bytes"])
+    assert more < 0.01 * 8 * 256 * V * 4, more
+
+
+def test_train_row_sheds_the_logits_pair(smoke_rows):
+    """qwen2-0.5b's 2-layer train step row (forward, backward, AdamW)
+    counts at least the logits' collectives (`TRAIN_ROW_LOGITS_PAIR`)
+    fewer bytes than while the loss gathered them
+    (`TRAIN_ROW_GATHERED`)."""
+    got = smoke_rows["qwen2-0.5b/train"]["collective_bytes_per_device"]
+    assert 0 < got <= TRAIN_ROW_GATHERED - TRAIN_ROW_LOGITS_PAIR, got
+
+
+def test_loss_collectives_never_hold_a_chunks_logits():
+    """The loss head's forward and backward alone (`chunked_ce_loss` on
+    meta DTensors, activations [8, 256, d] in the batch layout, the head
+    as the rules place it) on the (2, 4) mesh, for qwen2-0.5b (V split
+    over "model"), internvl2-26b (V 92,553 does not divide 4: the head is
+    split on d, the row-parallel fallback) and musicgen's first codebook
+    head: no collective outputs as many elements as one chunk's whole
+    logits, B x c x V (the parent's all-gather and all-reduce)."""
+    got = _last_json(_run("""
+        import dataclasses, json, torch
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+        from repro_torch.analysis.op_stats import COLLECTIVE_NS
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.specs import params_specs
+        from repro_torch.models import decoder, layers
+        from repro_torch.parallel import sharding as shd
+
+        class Sizes(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.numel = []
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                got = func(*args, **(kwargs or {}))
+                if func.namespace in COLLECTIVE_NS:
+                    self.numel += [t.numel() for t in tree_leaves(got)
+                                   if isinstance(t, torch.Tensor)]
+                return got
+        dryrun.init_fake_world(8)
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        out = {}
+        for arch in ("qwen2-0.5b", "internvl2-26b", "musicgen-medium"):
+            cfg = dataclasses.replace(get_config(arch), n_layers=1)
+            p = shd.distribute_params(params_specs(cfg), mesh)
+            head = p["head"][0] if cfg.n_codebooks else p["head"]
+            head = head.detach().requires_grad_(True)
+            x = torch.empty(8, 256, cfg.d_model, dtype=cfg.torch_dtype,
+                            device="meta", requires_grad=True)
+            t = torch.empty(8, 256, dtype=torch.int64, device="meta")
+            sizes = Sizes()
+            with sizes:
+                xs = decoder._batch_layout(layers.replicated_like(x, head))
+                layers.chunked_ce_loss(head, xs, t, cfg.loss_chunk).backward()
+            out[arch] = dict(numel=sizes.numel, chunk=8 * min(
+                256, cfg.loss_chunk) * cfg.vocab_size)
+        print(json.dumps(out))
+    """))
+    for arch, r in got.items():
+        assert r["numel"] and max(r["numel"]) < r["chunk"], (arch, r)
 
 
 def test_dryrun_donation_keeps_one_copy_of_the_state():
@@ -430,9 +567,7 @@ def test_slot_split_decode_matches_reference():
     pytest.importorskip("jax")
     archs = repr(SLOT_DECODE_ARCHS)
     got = _last_json(_run(_PORT_DECODE.replace("ARCHS", archs)))
-    ref = _last_json(_run(_REF_DECODE.replace("ARCHS", archs), {
-        "XLA_FLAGS": "--xla_force_host_platform_device_count=256",
-        "JAX_PLATFORMS": "cpu"}))
+    ref = _last_json(_run_ref(_REF_DECODE.replace("ARCHS", archs), 256))
     for arch in SLOT_DECODE_ARCHS:
         g, r = got[arch], ref[arch]
         assert r["flops"] > 1e9 and g["collective_bytes"] > 0, (arch, g, r)
@@ -451,7 +586,7 @@ def decode_row(tmp_path_factory):
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              "qwen2-0.5b", "--shape", "decode_32k", "--json", str(path)],
             capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+            env=_env(ONE_THREAD))
         assert proc.returncode == 0, proc.stderr[-3000:]
     return path
 

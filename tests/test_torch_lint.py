@@ -217,6 +217,10 @@ INJECT = {
         "models/decoder.py", DECODER,
         "    h = _run_layers(params, cfg, x, cache, int(pos), use_kernels)\n",
         "    n = tokens.max().item()\n", "RPR402"),
+    "_VocabParallelNLL.backward .item()": (
+        "models/layers.py", "x/repro_torch/models/layers.py",
+        "        x, head, tc, logz = ctx.saved_tensors\n",
+        "        n = g.item()\n", "RPR402"),
     "merge_decode_parts .item()": (
         "models/layers.py", "x/repro_torch/models/layers.py",
         "    lse = lse.float()\n", "    n = lse.max().item()\n", "RPR402"),

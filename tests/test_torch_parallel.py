@@ -545,6 +545,293 @@ def test_slot_split_decode_equals_reference(tmp_path):
             name, got[f"gathered_{name}"], layer_k)
 
 
+# The sharded loss head: (case, arch, vocabulary) of the smoke configs in
+# f32 at 2 layers, chunks of LOSS_CHUNK positions, on (data, model) =
+# (2, 2) over 4 ranks: V split over "model" (qwen2-0.5b), V that does not
+# divide it (internvl2-26b at 509 words, with its prefix: the head is
+# split on d, the row-parallel fallback), and 4 codebook heads with a
+# prefix (musicgen).
+LOSS_CASES = (("vsplit", "qwen2-0.5b", 512), ("rows", "internvl2-26b", 509),
+              ("codebooks", "musicgen-medium", 512))
+LOSS_B, LOSS_T, LOSS_CHUNK = 4, 16, 4
+
+
+def _loss_cfg(arch: str, vocab: int, get=get_config):
+    return dataclasses.replace(get(arch).smoke(), vocab_size=vocab,
+                               loss_chunk=LOSS_CHUNK)
+
+
+def _loss_batch(data: dict, name: str) -> dict:
+    return {k: torch.from_numpy(data[f"{name}/{k}"])
+            for k in ("tokens", "targets", "prefix") if f"{name}/{k}" in data}
+
+
+def _loss_head_worker(rank, world, store, inp, out):
+    """Each case of `LOSS_CASES` on a (2, 2) mesh: `train_loss` and every
+    gradient, sharded and unsharded; the collectives of the sharded loss's
+    forward and backward by output size; the served logits of a prefill
+    and a decode step, sharded (whole, and their placements) and
+    unsharded."""
+    _init(rank, world, store)
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.analysis.op_stats import COLLECTIVE_NS
+    from repro_torch.models.weights import params_from_numpy
+    from repro_torch.parallel.sharding import distribute_params
+
+    class Sizes(TorchDispatchMode):
+        """The element counts of every collective's outputs."""
+
+        def __init__(self):
+            super().__init__()
+            self.numel = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            got = func(*args, **(kwargs or {}))
+            if func.namespace in COLLECTIVE_NS:
+                self.numel += [t.numel() for t in tree_leaves(got)
+                               if isinstance(t, torch.Tensor)]
+            return got
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    res = {}
+    with np.load(inp) as f:
+        data = dict(f)
+    mesh = make_host_mesh(2, device="cpu")
+    for name, arch, vocab in LOSS_CASES:
+        cfg = _loss_cfg(arch, vocab)
+        params = params_from_numpy(_tree({
+            k[len(name) + 3:]: v for k, v in data.items()
+            if k.startswith(f"{name}/p/")}), cfg, "cpu")
+        sp = distribute_params(params, mesh)
+        batch = _loss_batch(data, name)
+        for label, ps in (("sharded", sp), ("plain", params)):
+            leaves = _flat(ps)
+            for t in leaves.values():
+                t.requires_grad_(True)
+            loss = decoder.train_loss(ps, cfg, batch)
+            loss.backward()
+            res[f"{name}/loss_{label}"] = loss.detach()
+            for path, t in leaves.items():
+                res[f"{name}/grad_{label}/" + "/".join(path)] = whole(t.grad)
+                t.requires_grad_(False)
+            with torch.no_grad():
+                lg, cache = decoder.prefill(ps, cfg, batch["tokens"],
+                                            batch.get("prefix"),
+                                            max_len=LOSS_T + 8 + 1)
+                P = 0 if "prefix" not in batch else batch["prefix"].shape[1]
+                lg2, _ = decoder.decode_step(ps, cfg, cache,
+                                             batch["tokens"][:, :1], LOSS_T + P)
+            for step, x in (("prefill", lg), ("decode", lg2)):
+                res[f"{name}/{step}_{label}"] = whole(x)
+                if isinstance(x, DTensor):
+                    res[f"{name}/{step}_placements"] = np.array([
+                        f"Shard({p.dim})" if p.is_shard() else
+                        "Replicate" if p.is_replicate() else "Partial"
+                        for p in x.placements])
+        # the loss head alone, forward and backward, on activations in
+        # the batch layout: the element counts of its collectives
+        head, targets = sp["head"].detach(), batch["targets"]
+        if cfg.n_codebooks:
+            head, targets = head[1], targets[..., 1]
+        head.requires_grad_(True)
+        x = decoder._batch_layout(layers.replicated_like(
+            torch.randn(LOSS_B, LOSS_T, cfg.d_model,
+                        generator=torch.Generator().manual_seed(0)
+                        ).requires_grad_(True), head))
+        sizes = Sizes()
+        with sizes:
+            layers.chunked_ce_loss(head, x, targets,
+                                   cfg.loss_chunk).backward()
+        res[f"{name}/collective_numels"] = torch.tensor(sizes.numel)
+    if rank == 0:
+        np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+    dist.destroy_process_group()
+
+
+def test_sharded_loss_head_equals_reference(tmp_path):
+    """The vocabulary-parallel loss head on 4 gloo ranks as (data, model)
+    = (2, 2), f32, every case of `LOSS_CASES`, targets at the first and
+    last entry of each "model" rank's vocabulary slice (and of the whole
+    vocabulary where it does not divide): `train_loss` equals the
+    reference's (1e-5) and every sharded gradient the unsharded port's
+    and the reference's (1e-5); no collective of the sharded loss,
+    forward or backward, outputs as many elements as one chunk's whole
+    logits (B x c x V, the parent's gather); the served logits of a
+    prefill and a decode step equal the unsharded port's (1e-5), placed
+    as the reference returns them: B over "data", V over "model" where
+    it divides, else replicated."""
+    jax, _ = _ref()
+    import jax.numpy as jnp
+    from repro.configs import get_config as ref_get_config
+    from repro.models import decoder as ref_decoder
+    rng = np.random.default_rng(7)
+    arrays, want = {}, {}
+    for name, arch, vocab in LOSS_CASES:
+        ref_cfg = _loss_cfg(arch, vocab, ref_get_config)
+        params = jax.tree.map(np.asarray, ref_decoder.init_params(
+            jax.random.PRNGKey(3), ref_cfg))
+        nq = (ref_cfg.n_codebooks,) if ref_cfg.n_codebooks else ()
+        toks = rng.integers(0, vocab, (LOSS_B, LOSS_T, *nq))
+        half = vocab // 2
+        edges = np.array([0, half - 1, half, vocab - 1])
+        targets = rng.integers(0, vocab, (LOSS_B, LOSS_T, *nq))
+        targets[:, :4] = edges.reshape(1, 4, *(1,) * len(nq))
+        batch = dict(tokens=toks.astype(np.int64),
+                     targets=targets.astype(np.int64))
+        if ref_cfg.n_prefix_embeds:
+            batch["prefix"] = rng.normal(size=(
+                LOSS_B, ref_cfg.n_prefix_embeds,
+                ref_cfg.d_model)).astype(np.float32)
+        loss, grads = jax.value_and_grad(
+            lambda p, c=ref_cfg, b=batch: ref_decoder.train_loss(
+                p, c, {k: jnp.asarray(v) for k, v in b.items()}))(params)
+        want[name] = (float(loss), {
+            p: np.asarray(g) for p, g in _flat(jax.tree.map(np.asarray,
+                                                            grads)).items()})
+        arrays.update({f"{name}/{k}": v for k, v in batch.items()})
+        arrays.update({f"{name}/p/" + "/".join(p): a
+                       for p, a in _flat(params).items()})
+    inp, out = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(inp, **arrays)
+    _spawn(_loss_head_worker, 4, 4, str(tmp_path / "store"), str(inp),
+           str(out))
+    with np.load(out) as f:
+        got = dict(f)
+    for name, arch, vocab in LOSS_CASES:
+        want_loss, want_grads = want[name]
+        np.testing.assert_allclose(got[f"{name}/loss_sharded"], want_loss,
+                                   rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(got[f"{name}/loss_plain"], want_loss,
+                                   rtol=1e-5, err_msg=name)
+        assert len(want_grads) > 0
+        for path, g in want_grads.items():
+            key = "/".join(path)
+            sharded = got[f"{name}/grad_sharded/{key}"]
+            np.testing.assert_allclose(sharded,
+                                       got[f"{name}/grad_plain/{key}"],
+                                       atol=1e-5, rtol=1e-5,
+                                       err_msg=f"{name} {key}")
+            np.testing.assert_allclose(sharded, g, atol=1e-5, rtol=1e-5,
+                                       err_msg=f"{name} {key} vs reference")
+        numels = got[f"{name}/collective_numels"]
+        assert len(numels) and LOSS_B * LOSS_CHUNK * vocab not in numels, (
+            name, numels)
+        for step in ("prefill", "decode"):
+            np.testing.assert_allclose(got[f"{name}/{step}_sharded"],
+                                       got[f"{name}/{step}_plain"],
+                                       atol=1e-5, rtol=1e-5,
+                                       err_msg=f"{name} {step}")
+            vdim = got[f"{name}/{step}_sharded"].ndim - 1
+            model = f"Shard({vdim})" if vocab % 2 == 0 else "Replicate"
+            assert list(got[f"{name}/{step}_placements"]) == [
+                "Shard(0)", model], (name, step)
+
+
+def _one_device_worker(rank, world, store, out):
+    """qwen2-0.5b and musicgen smoke (with its prefix), in f32 and bf16,
+    on a (1, 1) mesh, sharded and unsharded on random weights: the loss
+    head alone (`chunked_ce_loss` on the final activations, and its
+    gradients), `train_loss` and the prefill logits."""
+    _init(rank, world, store)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.sharding import distribute_params
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    res = {}
+    mesh = make_host_mesh(1, device="cpu")
+    for arch in ("qwen2-0.5b", "musicgen-medium"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype,
+                                      loss_chunk=LOSS_CHUNK)
+            params = decoder.init_params(torch.Generator().manual_seed(0), cfg)
+            gen = torch.Generator().manual_seed(1)
+            nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+            batch = {k: torch.randint(0, cfg.vocab_size,
+                                      (LOSS_B, LOSS_T, *nq), generator=gen)
+                     for k in ("tokens", "targets")}
+            if cfg.n_prefix_embeds:
+                batch["prefix"] = torch.randn(
+                    LOSS_B, cfg.n_prefix_embeds, cfg.d_model, generator=gen)
+            xs = torch.randn(LOSS_B, LOSS_T, cfg.d_model,
+                             generator=gen).to(cfg.torch_dtype)
+            targets = batch["targets"][..., 0] if nq else batch["targets"]
+            for label, ps in (("sharded", distribute_params(params, mesh)),
+                              ("plain", params)):
+                key = f"{arch}/{dtype}/{label}"
+                head = (ps["head"][0] if nq else ps["head"]).detach()
+                head.requires_grad_(True)
+                x = xs.clone().requires_grad_(True)
+                loss = layers.chunked_ce_loss(
+                    head, decoder._batch_layout(layers.replicated_like(
+                        x, head)), targets, cfg.loss_chunk)
+                loss.backward()
+                res[f"{key}/head_loss"] = whole(loss).float()
+                res[f"{key}/dx"] = x.grad.float()
+                res[f"{key}/dhead"] = whole(head.grad).float()
+                with torch.no_grad():
+                    res[f"{key}/loss"] = decoder.train_loss(
+                        ps, cfg, batch, use_kernels=False).float()
+                    res[f"{key}/prefill"] = whole(decoder.prefill(
+                        ps, cfg, batch["tokens"], batch.get("prefix"),
+                        use_kernels=False)[0]).float()
+    np.savez(out, **{k: v.numpy() for k, v in res.items()})
+    dist.destroy_process_group()
+
+
+def test_one_device_loss_head_is_the_plain_path(tmp_path):
+    """On a one-device mesh nothing splits the vocabulary, the batch or
+    d, and the sharded loss head runs the plain path's arithmetic
+    (`torch.logsumexp` and its backward): for qwen2-0.5b's head and one
+    of musicgen's codebook heads (smoke, f32 and bf16), the loss and its
+    gradients in x and in the head are bit for bit the unsharded port's,
+    and so are `train_loss` and the prefill logits."""
+    out = tmp_path / "out.npz"
+    _spawn(_one_device_worker, 1, 1, str(tmp_path / "store"), str(out))
+    with np.load(out) as f:
+        got = dict(f)
+    plain = [k for k in got if "/plain/" in k]
+    assert len(plain) == 4 * 5
+    for k in plain:
+        np.testing.assert_array_equal(got[k.replace("/plain/", "/sharded/")],
+                                      got[k], err_msg=k)
+
+
+def test_mesh_train_rehearsal():
+    """`tools/mesh_train.py --device cpu --smoke`: qwen2-0.5b smoke on 4
+    gloo ranks as (data, model) = (2, 2). The sharded gradients hold
+    phase 14.3's criterion against the f32 ones, the collective bytes of
+    the forward and backward and of a train step are counted, and each
+    of the AdamW steps' losses on the mesh is within `LOSS_REL` of one
+    process's unsharded step."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "mesh_train.py"),
+         "--device", "cpu", "--smoke"], capture_output=True, text=True,
+        timeout=300, cwd=root, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])["mesh_train"]
+    assert got["ok"] and not got["bad_leaves"], got
+    assert got["mesh"] == [2, 2] and got["cards"] == 4
+    assert got["grad_collective_bytes"] > 0
+    assert got["step_collective_bytes"] > 0
+    assert len(got["step_losses"]) == len(got["unsharded_step_losses"]) == 3
+    assert [t["src"] for t in got["timed"]] == [os.path.join(root, "src")]
+
+
 def _stage_fn(sp, x):
     for w in sp:
         x = torch.tanh(x @ w)
