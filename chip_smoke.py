@@ -3554,15 +3554,16 @@ DRYRUNS = (("qwen2-72b", "train_4k", False),
 # collective bytes, what the step did then; PERF.md section 6): constants,
 # kept out of the JSON lines. kimi-k2 decode_32k while each "model" rank
 # gathered the whole KV cache and attended over all of it; qwen2-72b
-# train_4k while the loss gathered each chunk's whole-batch f32 logits,
-# as this phase printed it under torch 2.11 (torch 2.13's DTensor
-# counted 3.4399e12 collective bytes).
+# train_4k while every rank looked up the whole batch's embeddings and the
+# table's gradient was all-reduced whole, as this phase printed it under
+# torch 2.11 (torch 2.13's DTensor counted 8.5017e11 collective bytes).
 DRYRUN_BEFORE = {
     ("kimi-k2-1t-a32b", "decode_32k", True):
         (8.489e10, 9.265e9, "each model rank gathered the whole KV cache"),
     ("qwen2-72b", "train_4k", False):
-        (5.6573e15, 9.1424e12, "the loss gathered each chunk's "
-                               "whole-batch logits")}
+        (5.6573e15, 8.6535e11, "every rank looked up the whole batch and "
+                               "the table's gradient was all-reduced "
+                               "whole")}
 # 14.5: the slot-split decode on one card at kimi-k2's per-rank decode_32k
 # shape on 2x16x16: batch 128 over the 32 (pod, data) ranks, 8 KV heads of
 # G 8 at hd 128, the 8,192-slot window's ring cut into the 16 "model"

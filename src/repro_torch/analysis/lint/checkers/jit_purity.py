@@ -170,6 +170,16 @@ DEVICE_PROGRAMS: tuple[DeviceProgram, ...] = (
                   ("src/repro/training/train_loop.py:40",),
                   "the train step's loss head; on a mesh each rank's rows "
                   "and vocabulary slice, the log-sum-exps merged"),
+    DeviceProgram("models/layers.py",
+                  ("vocab_parallel_embed", "_VocabParallelEmbed.forward",
+                   "_VocabParallelEmbed.backward", "_slice_rows",
+                   "_table_moves", "_fsdp_gathered", "_all_reduce"),
+                  ("src/repro/training/train_loop.py:40",
+                   "src/repro/serving/engine.py:42",
+                   "src/repro/serving/engine.py:44"),
+                  "the token embedding of the train step, prefill and "
+                  "decode; on a mesh each rank's rows on its slice of the "
+                  "table"),
     DeviceProgram("training/optimizer.py",
                   ("apply_updates", "_update", "_pieces", "global_norm",
                    "schedule"),

@@ -27,11 +27,12 @@ super-block in the hybrid) is checkpointed, as the reference's
 
 Sharded: the three entry points take parameters made DTensors by
 `parallel.sharding.distribute_params`, for every family. `prefill`
-places its cache by `cache_specs`, the embeddings are placed by
-`batch_spec`, the tensors a step builds (tokens, positions) enter as
-replicated DTensors, each mixer's output enters the residual stream in
-that batch layout (`_batch_layout`), and the kernels run on local
-shards: the attention kernels (`layers.py`), the RWKV6 and Mamba2
+places its cache by `cache_specs`, each rank looks up embeddings on its
+slice of the table and they come out placed by `batch_spec`
+(`layers.vocab_parallel_embed`), the tensors a step builds (positions)
+enter as replicated DTensors, each mixer's output enters the residual
+stream in that batch layout (`_batch_layout`), and the kernels run on
+local shards: the attention kernels (`layers.py`), the RWKV6 and Mamba2
 recurrences on each rank's heads (`rwkv6.py`, `mamba2.py`), the MoE's
 experts on each rank's experts (`moe.py`). Each layer's new recurrent
 state is placed as its cache before it is written there.
@@ -46,7 +47,8 @@ from ..device import is_dtensor
 from ..parallel.sharding import batch_spec, distribute_cache, to_placements
 from .config import ModelConfig
 from .layers import (attention_apply, chunked_ce_loss, decode_key_positions,
-                     mlp_apply, replicated_like, rms_norm)
+                     mlp_apply, replicated_like, rms_norm,
+                     vocab_parallel_embed)
 from .mamba2 import mamba2_apply, mamba2_cache_init, mamba2_params
 from .moe import moe_apply, moe_params
 from .rwkv6 import rwkv6_apply, rwkv6_cache_init, rwkv6_params
@@ -389,28 +391,25 @@ def check_trainable(cfg: ModelConfig) -> None:
             f"trainable")
 
 
-def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table[tokens], as `F.embedding`: DTensor has its sharding rules
-    (vocab-parallel, and its backward) in every torch the port meets,
-    where the backward of indexing (`index_put`) fails to propagate over
-    DTensors on torch 2.11."""
-    return F.embedding(tokens, table)
-
-
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            prefix: torch.Tensor | None) -> torch.Tensor:
     """Token embeddings [B, T, d], after the projected prefix when one is
     given. Codebook tokens [B, T, nq] sum their embeddings in the model's
-    dtype, in the reference's order ((0 + e0) + e1) + ..."""
-    tokens = replicated_like(tokens, params["embed"])
-    if cfg.n_codebooks:
-        x = sum(_lookup(params["embed"][q], tokens[..., q])
+    dtype, in the reference's order ((0 + e0) + e1) + ... On a DTensor
+    table each rank looks up on its own slice of the table
+    (`layers.vocab_parallel_embed`) and projects its own prefix rows; the
+    result is in the batch layout."""
+    table = params["embed"]
+    if is_dtensor(table):
+        x = vocab_parallel_embed(table, tokens)
+    elif cfg.n_codebooks:
+        x = sum(F.embedding(tokens[..., q], table[q])
                 for q in range(cfg.n_codebooks))
     else:
-        x = _lookup(params["embed"], tokens)
+        x = F.embedding(tokens, table)
     if prefix is not None:
-        pre = (replicated_like(prefix, params["embed"]).to(x.dtype)
-               @ params["prefix_proj"])
+        pre = _batch_layout(replicated_like(prefix, table))
+        pre = _batch_layout(pre.to(x.dtype) @ params["prefix_proj"])
         x = torch.cat([pre, x], dim=1)
     return x
 

@@ -38,7 +38,7 @@ from ..device import is_dtensor
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.decode_attention.ref import decode_attention_ref
 from ..kernels.flash_attention.ops import flash_attention
-from ..parallel.sharding import batch_spec
+from ..parallel.sharding import batch_spec, to_placements
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -566,18 +566,18 @@ def _shard_gold(logits: torch.Tensor, tc: torch.Tensor,
     return torch.where((t >= 0) & (t < V), g, 0.0)
 
 
-def _fsdp_gathered(head):
-    """DTensor head [d, V] with its split of d over the batch (FSDP) axes
-    gathered and its "model" split kept: once per loss call, where a
-    product with the batch-split activations would move the activations
-    at every chunk. Its gradient, a partial sum over the batch axes, is
-    reduce-scattered back onto that split."""
+def _fsdp_gathered(w):
+    """DTensor w (the head [d, V], the embedding table [..., V, d]) with
+    its split of d over the batch (FSDP) axes gathered and its "model"
+    split kept: once per call, where a product or a lookup on the
+    batch-split activations would move the activations at every chunk.
+    Its gradient, a partial sum over the batch axes, is reduce-scattered
+    back onto that split."""
     from torch.distributed.tensor import Replicate
-    mesh = head.device_mesh
-    pl = [Replicate() if p.is_shard(0) and name != "model" else p
-          for name, p in zip(mesh.mesh_dim_names, head.placements)]
-    return head if pl == list(head.placements) else head.redistribute(mesh,
-                                                                       pl)
+    mesh = w.device_mesh
+    pl = [Replicate() if p.is_shard() and name != "model" else p
+          for name, p in zip(mesh.mesh_dim_names, w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(mesh, pl)
 
 
 class _LossPlan:
@@ -727,3 +727,143 @@ def chunked_ce_loss(head: torch.Tensor, xs: torch.Tensor,
             part = _chunk_nll(head, xc, tc)
         total = total + part
     return total / (B * S)
+
+
+# ---------------------------------------------------------------------------
+# The token embedding on DTensors (each rank's rows on its slice of the table)
+# ---------------------------------------------------------------------------
+
+class _EmbedPlan:
+    """How one rank looks up tokens [B, T] (or [B, T, nq]) on its local
+    shard of a table [V, d] (or codebooks [nq, V, d]), per mesh dim, from
+    the table's placements there:
+    - whole: the rank's own rows of the batch layout (`rows`: B over the
+      batch axes where it divides), whose work is `split` there (the
+      table's gradient is a partial sum over those ranks);
+    - V split (`vocab`): the rows that the other dims give, an id outside
+      this rank's slice looking up zeros, summed over the slice's ranks;
+    - d split: every row that the other dims give, on this rank's columns,
+      which the caller then moves to the batch layout (`out`: split on the
+      last dim there).
+    The local_map placements of the table (`tablep`), the tokens (`tokp`)
+    and the output (`out`), and v0, this rank's first vocabulary entry. A
+    table split otherwise raises: there is no replicated fallback."""
+
+    def __init__(self, table, B: int):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh = mesh = table.device_mesh
+        vdim, ddim = table.ndim - 2, table.ndim - 1
+        self.rows = to_placements(batch_spec(mesh, (B,)), mesh)
+        self.vocab, self.split, self.tokp, self.out = [], [], [], []
+        for i, (tp, bp) in enumerate(zip(table.placements, self.rows)):
+            if tp.is_replicate():
+                tok = out = bp
+            elif tp.is_shard(vdim) and not bp.is_shard():
+                tok = out = Replicate()
+                if mesh.size(i) > 1:
+                    self.vocab.append(i)
+            elif tp.is_shard(ddim):
+                tok, out = Replicate(), Shard(2)
+            else:
+                raise ValueError(
+                    f"embedding table placed {table.placements} on mesh "
+                    f"dims {mesh.mesh_dim_names}: V may be split only "
+                    f"where the batch is not")
+            self.tokp.append(tok)
+            self.out.append(out)
+            self.split.append(mesh.size(i) > 1 and tok.is_shard())
+        self.tablep = list(table.placements)
+        self.v0 = _shard_start(table, vdim)
+
+
+def _slice_rows(table: torch.Tensor, ids: torch.Tensor,
+                masked: bool) -> torch.Tensor:
+    """table[ids] on one rank's slice of V, rows [V_l, d]; `masked`: an id
+    equal to V_l (outside the slice) looks up zeros."""
+    if not masked:
+        return F.embedding(ids, table)
+    n = table.shape[0]
+    return F.embedding(ids.clamp(max=n - 1), table).masked_fill(
+        (ids == n)[..., None], 0)
+
+
+class _VocabParallelEmbed(torch.autograd.Function):
+    """The token embedding on one rank's local shards (`_EmbedPlan`).
+    Forward: each codebook's rows looked up on the local slice (zeros for
+    an id outside it), summed over `vocab` (exact: one term is not zero),
+    then added in the reference's order ((0 + e0) + e1) + ... in the
+    table's dtype. Backward: the rows' gradients index-added into the
+    local slice (`embedding_dense_backward`, `F.embedding`'s own
+    backward). Where nothing splits V the arithmetic is `F.embedding`'s,
+    so a one-device mesh gives its bits."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, plan: _EmbedPlan):
+        books = table.ndim == 3
+        V = table.shape[-2]
+        t = tokens
+        if plan.vocab:
+            t = tokens - plan.v0
+            t = torch.where((t >= 0) & (t < V), t, V)
+        pairs = (zip(table.unbind(0), t.unbind(-1)) if books
+                 else ((table, t),))
+        parts = [_slice_rows(w, i, bool(plan.vocab)) for w, i in pairs]
+        if plan.vocab:
+            parts = _all_reduce(torch.stack(parts), "sum", plan.mesh,
+                                plan.vocab).unbind(0)
+        ctx.save_for_backward(t)
+        ctx.plan, ctx.books, ctx.V = plan, books, V
+        return sum(parts) if books else parts[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (t,) = ctx.saved_tensors
+        V = ctx.V
+        # an id outside the slice (== V) names a padding row, which
+        # gathers no gradient
+        n, pad = (V + 1, V) if ctx.plan.vocab else (V, -1)
+        grads = [torch.ops.aten.embedding_dense_backward(g, i, n, pad,
+                                                         False)[:V]
+                 for i in (t.unbind(-1) if ctx.books else (t,))]
+        dw = torch.stack(grads) if ctx.books else grads[0]
+        return dw.contiguous(), None, None
+
+
+def _table_moves(table, B: int, T: int) -> bool:
+    """Whether gathering the table's FSDP split of d moves fewer bytes
+    than moving the looked-up rows: the table's local rows (over all its
+    codebooks) against the rows [B_local, T] of a rank's output."""
+    mesh = table.device_mesh
+    rows = to_placements(batch_spec(mesh, (B,)), mesh)
+    mine = B * T
+    for i, p in enumerate(rows):
+        mine //= mesh.size(i) if p.is_shard() else 1
+    local = table.to_local().shape
+    return local[:-1].numel() <= mine
+
+
+def vocab_parallel_embed(table, tokens: torch.Tensor):
+    """table[tokens] for a DTensor table [V, d] (or codebooks [nq, V, d],
+    their rows summed) placed by the reference's rule, and tokens [B, T]
+    (or [B, T, nq]) that every rank holds whole: [B, T, d] in the batch
+    layout (B over the batch axes where it divides, replicated elsewhere).
+    Each rank looks up rows on its own slice of the table
+    (`_VocabParallelEmbed`). Where the rule splits d over the FSDP axes,
+    the smaller of two moves is made: the table is gathered there once a
+    call (each rank then looks up its own rows, and the gradient is
+    reduce-scattered back onto the split), or the table stays and the
+    looked-up rows move (each rank looks up its group's rows on its
+    columns, and an all-to-all puts them in the batch layout, its
+    gradient back; the gradient is then whole on each shard). V over
+    "model" sums the lookups there; d over "model" (a V that does not
+    divide it) gathers the columns; a table whole over the batch axes
+    has its gradient summed there. No rank moves a whole [V, d]."""
+    B, T = tokens.shape[:2]
+    if _table_moves(table, B, T):
+        table = _fsdp_gathered(table)
+    plan = _EmbedPlan(table, B)
+    x = _local_map(
+        lambda w, t: _VocabParallelEmbed.apply(w, t, plan), (plan.out,),
+        (plan.tablep, plan.tokp), plan.mesh, plan.split)(
+            table, replicated_like(tokens, table))
+    return x.redistribute(plan.mesh, plan.rows)

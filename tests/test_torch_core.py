@@ -6,6 +6,8 @@ import dataclasses
 import numpy as np
 import pytest
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 from repro import core as ref_core
 from repro.core import bridge as ref_bridge
 from repro_torch import core

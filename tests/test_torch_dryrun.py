@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 from repro_torch.analysis import roofline
 from repro_torch.analysis.op_stats import OpCounter, OpStats
 from repro_torch.configs import ARCH_IDS, get_config
@@ -200,6 +202,15 @@ _PORT_SMOKE = """
                                use_kernels=False)
         out[f"{arch}/{wide}"] = dict(flops=c.stats.flops,
                                      collective_bytes=c.stats.collective_bytes)
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), n_layers=2)
+    p = shd.distribute_params(params_specs(cfg), mesh)
+    t = torch.empty(8, 4096, dtype=torch.int32, device="meta")
+    c = OpCounter()
+    with c, torch.no_grad():
+        decoder.train_loss(p, cfg, dict(tokens=t, targets=t),
+                           use_kernels=False)
+    out["kimi-k2-1t-a32b/32k"] = dict(flops=c.stats.flops,
+                                      collective_bytes=c.stats.collective_bytes)
     case = ShapeCase("train_4k", 256, 8, "train")
     for arch in ("rwkv6-7b", "zamba2-7b", "kimi-k2-1t-a32b", "qwen2-0.5b"):
         c = dataclasses.replace(get_config(arch), n_layers=2)
@@ -209,7 +220,8 @@ _PORT_SMOKE = """
 """
 
 # The MoE forward losses of `_PORT_SMOKE` and `_REF_MOE`: (arch, d_ff
-# multiple) at 2 layers, tokens [8, 256] on a (2, 4) mesh.
+# multiple) at 2 layers, tokens [8, 256] on a (2, 4) mesh; and kimi-k2 at 2
+# layers, tokens [8, 4096] (32k), under "kimi-k2-1t-a32b/32k".
 MOE_RUNS = (("kimi-k2-1t-a32b", 1), ("kimi-k2-1t-a32b", 2),
             ("llama4-scout-17b-a16e", 1))
 
@@ -237,7 +249,54 @@ _REF_MOE = """
             compiled = f.lower(p_shapes, toks).compile()
         s = analyze(compiled.as_text())
         out[arch] = dict(flops=s.flops, collective_bytes=s.collective_bytes)
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), n_layers=2)
+    p_shapes = params_specs(cfg)
+    p_shard = shd.to_shardings(shd.param_specs(p_shapes, mesh), mesh)
+    toks = jax.ShapeDtypeStruct((8, 4096), jnp.int32)
+    tok_shard = jax.sharding.NamedSharding(
+        mesh, shd.batch_spec(mesh, toks.shape))
+    with mesh:
+        f = jax.jit(lambda p, t: decoder.train_loss(
+            p, cfg, dict(tokens=t, targets=t)),
+            in_shardings=(p_shard, tok_shard))
+        compiled = f.lower(p_shapes, toks).compile()
+    s = analyze(compiled.as_text())
+    out["kimi-k2-1t-a32b/32k"] = dict(flops=s.flops,
+                                      collective_bytes=s.collective_bytes)
     print(json.dumps(out))
+"""
+
+# The reference's train step (forward, backward, AdamW) of qwen2-0.5b at 2
+# layers, batch [8, 256] on the (2, 4) mesh, jitted as its dry-run's
+# `run_one` jits a train row.
+_REF_TRAIN = """
+    import dataclasses, json
+    import jax
+    from repro.analysis.hlo_stats import analyze
+    from repro.configs import get_config
+    from repro.launch.specs import ShapeCase, input_specs, params_specs
+    from repro.parallel import sharding as shd
+    from repro.training.optimizer import AdamWConfig, init_state
+    from repro.training.train_loop import make_train_step
+    mesh = jax.make_mesh((2, 4), ("data", "model"))
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2)
+    p_shapes = params_specs(cfg)
+    p_spec = shd.param_specs(p_shapes, mesh)
+    p_shard = shd.to_shardings(p_spec, mesh)
+    inputs = input_specs(cfg, ShapeCase("train_4k", 256, 8, "train"))
+    with mesh:
+        opt_shapes = jax.eval_shape(init_state, p_shapes)
+        opt_shard = shd.to_shardings(dict(
+            mu=p_spec, nu=p_spec, step=jax.sharding.PartitionSpec()), mesh)
+        batch_shard = {k: jax.sharding.NamedSharding(
+            mesh, shd.batch_spec(mesh, v.shape)) for k, v in inputs.items()}
+        f = jax.jit(make_train_step(cfg, AdamWConfig()),
+                    in_shardings=(p_shard, opt_shard, batch_shard),
+                    out_shardings=(p_shard, opt_shard, None),
+                    donate_argnums=(0, 1))
+        compiled = f.lower(p_shapes, opt_shapes, inputs).compile()
+    s = analyze(compiled.as_text())
+    print(json.dumps(dict(flops=s.flops, collective_bytes=s.collective_bytes)))
 """
 
 
@@ -265,6 +324,13 @@ def ref_moe():
     """The reference's MoE forward losses of `_REF_MOE`."""
     pytest.importorskip("jax")
     return _last_json(_run_ref(_REF_MOE, 8))
+
+
+@pytest.fixture(scope="module")
+def ref_train():
+    """The reference's qwen2-0.5b train row of `_REF_TRAIN`."""
+    pytest.importorskip("jax")
+    return _last_json(_run_ref(_REF_TRAIN, 8))
 
 
 def test_dryrun_smoke_subprocess(smoke_rows, ref_smoke):
@@ -314,6 +380,21 @@ def test_moe_moves_tokens_not_expert_weights(smoke_rows):
     assert abs(two / one - 1) <= 0.01, (one, two)
 
 
+def test_moe_token_gather_moves_less_than_the_reference(smoke_rows,
+                                                        ref_moe):
+    """kimi-k2 at 2 layers, the forward loss on the (2, 4) mesh with 32k
+    tokens ([8, 4096]), where the tokens outweigh the expert weights: the
+    port gathers every rank's tokens to the ranks of each slice of f
+    (`moe._sharded_experts`), and moves at most the reference's collective
+    bytes a device (which all-gathers and all-reduces an f32 dispatch
+    buffer), with flops within FLOP_TOL of its HLO count."""
+    got = smoke_rows["kimi-k2-1t-a32b/32k"]
+    ref = ref_moe["kimi-k2-1t-a32b/32k"]
+    assert ref["flops"] > 1e12 and got["collective_bytes"] > 0, (got, ref)
+    assert got["collective_bytes"] <= ref["collective_bytes"], (got, ref)
+    assert abs(got["flops"] / ref["flops"] - 1) <= FLOP_TOL, (got, ref)
+
+
 # qwen2-0.5b's 2-layer train_4k row of `smoke_rows` (forward, backward,
 # AdamW, batch [8, 256] on the (2, 4) mesh) while the loss gathered every
 # chunk's logits whole: its collective bytes a device, and those of the
@@ -361,6 +442,112 @@ def test_train_row_sheds_the_logits_pair(smoke_rows):
     (`TRAIN_ROW_GATHERED`)."""
     got = smoke_rows["qwen2-0.5b/train"]["collective_bytes_per_device"]
     assert 0 < got <= TRAIN_ROW_GATHERED - TRAIN_ROW_LOGITS_PAIR, got
+
+
+# The same row while every rank looked up the whole batch: its collective
+# bytes and flops a device, and the embedding gradient's all-reduce of the
+# whole [V, d] f32 table in it (then reduce-scattered onto its split).
+TRAIN_ROW_WHOLE_TABLE = 1.971492236e9
+TRAIN_ROW_FLOPS = 3.45392545792e11
+EMBED_GRAD_ALL_REDUCE = 151936 * 896 * 4 * 2
+
+
+def test_train_row_moves_less_than_the_reference(smoke_rows, ref_train):
+    """qwen2-0.5b's 2-layer train step row on the (2, 4) mesh: each rank
+    looks up its rows on its slice of the table, so the table's gradient
+    is never all-reduced whole: the row counts at most the reference's
+    collective bytes a device (`_REF_TRAIN`, the HLO of its train step),
+    at least the whole table's all-reduce fewer than when every rank
+    looked up the whole batch (`TRAIN_ROW_WHOLE_TABLE`), and no more
+    flops than then."""
+    got = smoke_rows["qwen2-0.5b/train"]
+    bytes_, flops = (got["collective_bytes_per_device"],
+                     got["hlo_flops_per_device"])
+    assert ref_train["collective_bytes"] > 0 and ref_train["flops"] > 1e9
+    assert 0 < bytes_ <= ref_train["collective_bytes"], (got, ref_train)
+    assert bytes_ <= TRAIN_ROW_WHOLE_TABLE - EMBED_GRAD_ALL_REDUCE, bytes_
+    assert 0 < flops <= TRAIN_ROW_FLOPS, flops
+
+
+def test_embedding_collectives_never_hold_the_table():
+    """The embedding's forward and backward alone
+    (`layers.vocab_parallel_embed` on meta DTensors, the table as the rules
+    place it, the gradient of every output, then placed as the table, as
+    the optimizer reads it) on the (2, 4) mesh. A table
+    split on V (qwen2-0.5b, with tokens [8, 256], where the looked-up rows
+    move, and [8, 16384], where the table is gathered over "data";
+    musicgen's 4 codebook tables): no collective outputs more than
+    V / model rows of the table or the rank's own looked-up rows
+    [B_local, T, d] (each codebook's), and none the whole table, as the
+    parent's gradient all-reduce did. A V that does not divide "model"
+    (internvl2-26b's 92,553 words; the table split on d there, whole over
+    "data"): one collective outputs the whole vocabulary, the gradient's
+    sum over "data" of each rank's d slice, as the reference's program
+    sums it."""
+    got = _last_json(_run("""
+        import dataclasses, json, torch
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+        from repro_torch.analysis.op_stats import (_SKIP_BYTES_OPS,
+                                                   COLLECTIVE_NS)
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.specs import params_specs
+        from repro_torch.models import layers
+        from repro_torch.parallel import sharding as shd
+
+        class Sizes(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.numel = []
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                got = func(*args, **(kwargs or {}))
+                if (func.namespace in COLLECTIVE_NS and func.__name__
+                        .split(".")[0] not in _SKIP_BYTES_OPS):
+                    self.numel += [t.numel() for t in tree_leaves(got)
+                                   if isinstance(t, torch.Tensor)]
+                return got
+        dryrun.init_fake_world(8)
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        out = {}
+        for arch, T in (("qwen2-0.5b", 256), ("qwen2-0.5b", 16384),
+                        ("musicgen-medium", 256), ("internvl2-26b", 256)):
+            cfg = dataclasses.replace(get_config(arch), n_layers=1)
+            table = shd.distribute_params(params_specs(cfg), mesh)["embed"]
+            table = table.detach().requires_grad_(True)
+            nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+            t = torch.empty(8, T, *nq, dtype=torch.int64, device="meta")
+            sizes = Sizes()
+            with sizes:
+                x = layers.vocab_parallel_embed(table, t)
+                x.backward(torch.ones_like(x))
+                grad = table.grad.redistribute(mesh, table.placements)
+            out[f"{arch}/{T}"] = dict(
+                grad=[str(p) for p in table.grad.placements],
+                numel=sizes.numel, moves=layers._table_moves(table, 8, T),
+                placements=[str(p) for p in x.placements],
+                slice=max(1, cfg.n_codebooks) * cfg.vocab_size // 4
+                * cfg.d_model, rows=max(1, cfg.n_codebooks) * 4 * T
+                * cfg.d_model, whole=table.numel(),
+                vocab=cfg.vocab_size * cfg.d_model // 4)
+        print(json.dumps(out))
+    """))
+    assert not got["qwen2-0.5b/256"]["moves"]
+    assert got["qwen2-0.5b/16384"]["moves"]
+    for key in ("qwen2-0.5b/256", "qwen2-0.5b/16384", "musicgen-medium/256"):
+        r = got[key]
+        assert r["numel"], (key, r)
+        assert max(r["numel"]) <= max(r["slice"], r["rows"]), (key, r)
+        assert max(r["numel"]) < r["whole"], (key, r)
+        assert r["placements"] == ["S(0)", "R"], (key, r)
+    r = got["internvl2-26b/256"]
+    assert [n for n in r["numel"] if n >= r["vocab"]] == [r["vocab"]], r
 
 
 def test_loss_collectives_never_hold_a_chunks_logits():

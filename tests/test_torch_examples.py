@@ -25,6 +25,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent

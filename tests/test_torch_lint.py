@@ -23,6 +23,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 from repro.analysis import lint as ref_lint
 from repro.analysis.lint.registry import known_code_prefixes as ref_known_codes
 from repro_torch.analysis.lint import (all_rules, lint_file, lint_source,
@@ -221,6 +223,10 @@ INJECT = {
         "models/layers.py", "x/repro_torch/models/layers.py",
         "        x, head, tc, logz = ctx.saved_tensors\n",
         "        n = g.item()\n", "RPR402"),
+    "_VocabParallelEmbed.backward .item()": (
+        "models/layers.py", "x/repro_torch/models/layers.py",
+        "        (t,) = ctx.saved_tensors\n", "        n = g.sum().item()\n",
+        "RPR402"),
     "merge_decode_parts .item()": (
         "models/layers.py", "x/repro_torch/models/layers.py",
         "    lse = lse.float()\n", "    n = lse.max().item()\n", "RPR402"),

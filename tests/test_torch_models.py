@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

@@ -24,6 +24,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import decoder, layers
@@ -738,7 +740,8 @@ def _one_device_worker(rank, world, store, out):
     """qwen2-0.5b and musicgen smoke (with its prefix), in f32 and bf16,
     on a (1, 1) mesh, sharded and unsharded on random weights: the loss
     head alone (`chunked_ce_loss` on the final activations, and its
-    gradients), `train_loss` and the prefill logits."""
+    gradients), `train_loss` and every gradient of it, and the prefill
+    logits."""
     _init(rank, world, store)
     from torch.distributed.tensor import DTensor
 
@@ -778,9 +781,17 @@ def _one_device_worker(rank, world, store, out):
                 res[f"{key}/head_loss"] = whole(loss).float()
                 res[f"{key}/dx"] = x.grad.float()
                 res[f"{key}/dhead"] = whole(head.grad).float()
+                leaves = _flat(ps)
+                for t in leaves.values():
+                    t.requires_grad_(True)
+                loss = decoder.train_loss(ps, cfg, batch, use_kernels=False)
+                loss.backward()
+                res[f"{key}/loss"] = loss.detach().float()
+                for path, t in leaves.items():
+                    res[f"{key}/grad/" + "/".join(path)] = whole(
+                        t.grad).float()
+                    t.requires_grad_(False)
                 with torch.no_grad():
-                    res[f"{key}/loss"] = decoder.train_loss(
-                        ps, cfg, batch, use_kernels=False).float()
                     res[f"{key}/prefill"] = whole(decoder.prefill(
                         ps, cfg, batch["tokens"], batch.get("prefix"),
                         use_kernels=False)[0]).float()
@@ -791,17 +802,36 @@ def _one_device_worker(rank, world, store, out):
 def test_one_device_loss_head_is_the_plain_path(tmp_path):
     """On a one-device mesh nothing splits the vocabulary, the batch or
     d, and the sharded loss head runs the plain path's arithmetic
-    (`torch.logsumexp` and its backward): for qwen2-0.5b's head and one
-    of musicgen's codebook heads (smoke, f32 and bf16), the loss and its
-    gradients in x and in the head are bit for bit the unsharded port's,
-    and so are `train_loss` and the prefill logits."""
+    (`torch.logsumexp` and its backward), and the sharded embedding
+    `F.embedding`'s (its lookup, and `embedding_dense_backward`): for
+    qwen2-0.5b's head and one of musicgen's codebook heads (smoke, f32
+    and bf16), the loss and its gradients in x and in the head are bit
+    for bit the unsharded port's, and so are `train_loss`, every gradient
+    of it (the embedding table's, musicgen's 4 codebook tables and prefix
+    projection included; qwen2-0.5b's f32 key bias within 1e-8) and the
+    prefill logits."""
     out = tmp_path / "out.npz"
     _spawn(_one_device_worker, 1, 1, str(tmp_path / "store"), str(out))
     with np.load(out) as f:
         got = dict(f)
     plain = [k for k in got if "/plain/" in k]
-    assert len(plain) == 4 * 5
+    for arch, leaves in (("qwen2-0.5b", ("embed",)),
+                         ("musicgen-medium", ("embed", "prefix_proj"))):
+        for dtype in ("float32", "bfloat16"):
+            key = f"{arch}/{dtype}/plain/"
+            grads = [k for k in plain if k.startswith(key + "grad/")]
+            assert len([k for k in plain if k.startswith(key)]) == 5 + len(
+                grads) and len(grads) > 10
+            assert all(f"{key}grad/{leaf}" in grads for leaf in leaves)
     for k in plain:
+        if k == "qwen2-0.5b/float32/plain/grad/layers/attn/bk":
+            # the sharded attention's key bias gradient sums its rows in
+            # another order on the CPU, here as before the embedding was
+            # sharded (2.8e-9 apart)
+            np.testing.assert_allclose(
+                got[k.replace("/plain/", "/sharded/")], got[k], atol=1e-8,
+                rtol=0, err_msg=k)
+            continue
         np.testing.assert_array_equal(got[k.replace("/plain/", "/sharded/")],
                                       got[k], err_msg=k)
 

@@ -34,6 +34,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 from repro_torch.configs import get_config
 from repro_torch.models import decoder, moe
 

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 import repro.planner as ref_planner
 from repro import core as ref_core
 from repro_torch import core, planner

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 from repro_torch.kernels import _grad
 from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.launch import serve

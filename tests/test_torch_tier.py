@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _ref_cpu  # noqa: F401  (pins the reference to the CPU)
+
 from repro import core as ref_core
 from repro_torch import core
 from repro_torch.core import (agh, default_instance, is_feasible, objective,
