@@ -169,7 +169,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      a late position (every range full) and an early one (14 ranges
      empty: zeros and -inf, no NaN); one range's call and the whole
      cache's (what each rank ran while the cache was gathered) timed as
-     CUDA-graph replays beside their bytes bounds;
+     CUDA-graph replays beside their bytes bounds; 14.6 the head_dim-split
+     decode on the card at qwen2-72b's per-rank decode_32k shape on 16x16
+     under `kvhd` (B 8, KV 8, G 8, S 32,768 flat, bf16, hd 128 cut into
+     the 16 "model" ranks' slices of 8 lanes, each laid out as a Shard(3)
+     local shard: q [B, 1, H, 8], its own [B, S, KV, 8] cache), through
+     the layer's per-rank halves: each slice's partial scores
+     (`layers.hd_slice_scores`, `decode_scores_hd`), summed as the mesh's
+     all-reduce sums them, then each slice's softmax and P V
+     (`layers.hd_slice_attend`, `decode_softmax_pv_hd`) at the whole
+     head's scale, both kernels' launch counts set to 0 before that run
+     and read after (16 each); the result against the whole-head decode
+     kernel at the bf16 tolerances and its plain version in f32, late and
+     early; each kernel against its plain version on one slice; one
+     slice's call of each, and the whole-head kernel over the whole cache,
+     timed beside their bounds, and one slice's scores as `torch.matmul`
+     (the scores row's library time; the pair's rows join the kernel
+     table);
  15. the example drivers on the card, each as a subprocess with its
      default flags but the train twin's --steps 50:
      `examples/serve_e2e_torch.py` (AGH plans the default instance, the
@@ -590,9 +606,13 @@ def kernel_ops() -> dict:
     from repro_torch.kernels.rwkv6_wkv_bwd.ops import rwkv6_wkv_bwd
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.ssm_scan_bwd.ops import ssm_scan_bwd
+    from repro_torch.kernels.decode_attention_hd.ops import (
+        decode_scores_hd, decode_softmax_pv_hd)
     return {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
+            "decode_scores_hd": decode_scores_hd,
+            "decode_softmax_pv_hd": decode_softmax_pv_hd,
             "ssm_scan": ssm_scan, "ssm_scan_bwd": ssm_scan_bwd,
             "rwkv6_wkv": rwkv6_wkv, "rwkv6_wkv_bwd": rwkv6_wkv_bwd,
             "int8_grouped_matmul": int8_grouped_matmul}
@@ -3571,6 +3591,15 @@ DRYRUN_BEFORE = {
 # one (ranges 2-15 empty).
 SLOT_DECODE = dict(B=4, KV=8, G=8, hd=128, S=8192, n=16)
 SLOT_DECODE_POS = (3 * 8192 + 123, 1000)
+# 14.6: the head_dim-split decode on one card at qwen2-72b's per-rank
+# decode_32k shape on 16x16 with the cache split on head_dim (`kvhd`):
+# batch 128 over the 16 "data" ranks, 8 KV heads of G 8, a flat cache of
+# 32,768 slots, hd 128 cut into the 16 "model" ranks' slices of 8 lanes;
+# the last decode position (every slot written) and an early one.
+HD_DECODE = dict(B=8, KV=8, G=8, hd=128, S=32768, n=16)
+HD_DECODE_POS = (32768 - 1, 1000)
+HD_DECODE_PATH = ("qwen2-72b decode_32k per-rank shape, hd 128 in 16 "
+                  "head_dim slices (14.6)")
 INT8_NMAJOR = "int8_grouped_matmul_nmajor"
 
 
@@ -3952,6 +3981,151 @@ def slot_split_decode(dev, seed) -> dict:
     return out
 
 
+def hd_split_decode(dev, seed) -> dict:
+    """Phase 14.6 (`HD_DECODE`): the head_dim-split decode on the 16
+    "model" ranks' slices of head_dim through the layer's own per-rank
+    halves, each slice laid out as a Shard(3) local shard (q [B, 1, H,
+    hl] and its own [B, S, KV, hl] cache, contiguous): every slice's
+    partial scores (`layers.hd_slice_scores`, `decode_scores_hd`),
+    summed in rank order (the arithmetic of the mesh's all-reduce), then
+    every slice's softmax and P V (`layers.hd_slice_attend`,
+    `decode_softmax_pv_hd`) at the whole head's scale. The pair's launch
+    counts are set to 0 just before that run and read just after (one
+    launch of each a slice). Its output, put back together, is held
+    against the whole-head decode kernel at the bf16 tolerances and the
+    plain version in f32, at each of `HD_DECODE_POS`; each kernel against
+    its own plain version on one slice. Then one slice's call of each
+    kernel, the pair, and the whole-head kernel over the whole cache (what
+    each "model" rank ran while the cache was gathered) timed as CUDA-graph
+    replays beside their bounds, and one slice's scores as one library
+    call (`torch.matmul`, bf16 out). Returns the numbers and the pair's
+    rows of the kernel table."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention_hd import kernel as hk
+    from repro_torch.kernels.decode_attention_hd.ref import (
+        decode_scores_hd_ref, decode_softmax_pv_hd_ref)
+    from repro_torch.models.layers import (decode_key_positions,
+                                           hd_slice_attend, hd_slice_scores)
+
+    c = HD_DECODE
+    B, KV, G, hd, S, n = (c[k] for k in ("B", "KV", "G", "hd", "S", "n"))
+    hl = hd // n
+    scale = hd ** -0.5
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 146)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev).to(bf16)
+    kc = model_layout(gen, B, S, KV, hd, bf16, dev)
+    vc = model_layout(gen, B, S, KV, hd, bf16, dev)
+    cut = [slice(i * hl, (i + 1) * hl) for i in range(n)]
+    # each rank's Shard(3) local tensors: the layer's q [B, 1, H, hl] and
+    # its [B, S, KV, hl] cache
+    q_rank = [q.reshape(B, 1, KV * G, hd)[..., c].contiguous() for c in cut]
+    k_rank = [kc.transpose(1, 2)[..., c].contiguous() for c in cut]
+    v_rank = [vc.transpose(1, 2)[..., c].contiguous() for c in cut]
+    # the same, as the kernels take them: [B, KV, G, hl], [B, KV, S, hl]
+    qs = [x.reshape(B, KV, G, hl) for x in q_rank]
+    ks = [x.transpose(1, 2) for x in k_rank]
+    vs = [x.transpose(1, 2) for x in v_rank]
+    ops = kernel_ops()
+    out = dict(shape=f"B={B} KV={KV} G={G} hd={hd} S={S} flat, {n} slices "
+                     f"of {hl} lanes, bf16", positions={})
+    for i, pos in enumerate(HD_DECODE_POS):
+        k_pos = decode_key_positions(S, pos, 0, dev)
+        if i == 0:
+            for op in ops.values():
+                op.launches = 0
+        s = sum(hd_slice_scores(qi, ki) for qi, ki in zip(q_rank, k_rank))
+        got = torch.cat([hd_slice_attend(s, vi, pos, k_pos, scale)
+                         for vi in v_rank], -1).reshape(B, KV, G, hd)
+        if i == 0:
+            out["launches"] = {k: op.launches for k, op in ops.items()
+                               if op.launches}
+            if out["launches"] != {"decode_scores_hd": n,
+                                   "decode_softmax_pv_hd": n}:
+                fail(f"14.6 the pair launched {out['launches']}, not {n} "
+                     f"of each kernel")
+        whole = decode_attention(q, kc, vc, k_pos, pos)
+        plain = decode_attention_ref(*f32(q, kc, vc), k_pos, pos)
+        err_whole, rel_whole = check_kernel(
+            f"14.6 {n} head_dim slices vs the whole-head kernel, pos {pos}",
+            got, whole.float())
+        err_plain, rel_plain = check_kernel(
+            f"14.6 {n} head_dim slices vs the plain version (f32), pos "
+            f"{pos}", got, plain)
+        out["positions"][str(pos)] = dict(
+            max_abs_err_vs_whole_kernel=err_whole,
+            row_rel_vs_whole_kernel=rel_whole,
+            max_abs_err_vs_plain=err_plain, row_rel_vs_plain=rel_plain)
+    # each kernel against its plain version on one slice, at the late
+    # position (the scores as the softmax kernel gets them: summed)
+    pos = HD_DECODE_POS[0]
+    k_pos = decode_key_positions(S, pos, 0, dev)
+    s0 = hk.decode_scores_hd(qs[0], ks[0])
+    scores_err = check_close("14.6 decode_scores_hd, one slice (f32 out)",
+                             s0, decode_scores_hd_ref(qs[0], ks[0]), F32_TOL)
+    pv = hk.decode_softmax_pv_hd(s, vs[0], k_pos, pos, scale)
+    pv_err, pv_rel = check_kernel(
+        "14.6 decode_softmax_pv_hd, one slice, summed scores", pv,
+        decode_softmax_pv_hd_ref(s, vs[0].float(), k_pos, pos, scale))
+
+    # Times at the late position: one slice's call of each kernel, each
+    # slice on its own inputs in turn (together past the 50 MB L2).
+    item = q.element_size()
+    sc_ms = time_ms([lambda i=i: hk.decode_scores_hd(qs[i], ks[i])
+                     for i in range(n)])[0]
+    pv_ms = time_ms([lambda i=i: hk.decode_softmax_pv_hd(
+        s, vs[i], k_pos, pos, scale) for i in range(n)])[0]
+    whole_ms = time_ms([lambda: dk.decode_attention(q, kc, vc, k_pos,
+                                                    pos)])[0]
+    sc_lib = time_ms([lambda i=i: torch.matmul(qs[i], ks[i].transpose(-1, -2))
+                      for i in range(n)])[0]
+    sc_plain = time_ms([lambda: decode_scores_hd_ref(qs[1], ks[1])], 8)[0]
+    pv_plain = time_ms([lambda: decode_softmax_pv_hd_ref(
+        s, vs[1], k_pos, pos, scale)], 8)[0]
+    scores_b = 4.0 * B * KV * G * S
+    sb, sby = bound(item * (q.numel() + B * KV * S * hd) / n + scores_b,
+                    2.0 * B * KV * G * S * hl)
+    pb, pby = bound(scores_b + item * B * KV * S * hl + 4 * S
+                    + item * q.numel() / n, 2.0 * B * KV * G * S * hl)
+    wb, wby = bound(item * (2 * q.numel() + 2 * B * KV * S * hd) + 4 * S,
+                    4.0 * B * KV * G * S * hd)
+    out.update(scores_ms=sc_ms, scores_bound_ms=sb, scores_bound_by=sby,
+               scores_library_ms=sc_lib,
+               softmax_pv_ms=pv_ms, softmax_pv_bound_ms=pb,
+               softmax_pv_bound_by=pby, rank_pair_ms=sc_ms + pv_ms,
+               rank_pair_bound_ms=sb + pb, whole_ms=whole_ms,
+               whole_bound_ms=wb, whole_bound_by=wby,
+               rank_cache_mb=2 * B * KV * S * hl * item / 1e6,
+               whole_cache_mb=2 * B * KV * S * hd * item / 1e6,
+               scores_mb=scores_b / 1e6)
+    print(f"  one slice ({hl} lanes, {out['rank_cache_mb']:.1f} MB of cache,"
+          f" {out['scores_mb']:.1f} MB of f32 scores): scores {sc_ms:.4f} ms"
+          f" (bound {sb:.4f}, {sby}), softmax and P V {pv_ms:.4f} ms (bound "
+          f"{pb:.4f}, {pby}), the pair {sc_ms + pv_ms:.4f} ms; the whole-head"
+          f" kernel over the whole cache ({out['whole_cache_mb']:.1f} MB, "
+          f"what each model rank ran while the cache was gathered) "
+          f"{whole_ms:.4f} ms (bound {wb:.4f}, {wby}); plain: scores "
+          f"{sc_plain:.4f}, softmax and P V {pv_plain:.4f} ms; library: "
+          f"scores as torch.matmul (bf16 out) {sc_lib:.4f} ms", flush=True)
+    src = "src/repro_torch/kernels/csrc/decode_attention_hd.cu"
+    shape = f"B={B} KV={KV} G={G} S={S} hl={hl} bf16"
+    out["rows"] = [
+        dict(name=name, route="cuda", source=src,
+             replaces=SOURCES["decode_attention"],
+             launches=out["launches"][name],
+             launches_by_path={HD_DECODE_PATH: out["launches"][name]},
+             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+             bound_by=by, library_ms=lib, shape=shape)
+        for name, err, ms, plain, b, by, lib in (
+            ("decode_scores_hd", scores_err, sc_ms, sc_plain, sb, sby,
+             sc_lib),
+            ("decode_softmax_pv_hd", pv_err, pv_ms, pv_plain, pb, pby, None))]
+    out["rows"][1]["max_row_rel_err"] = pv_rel
+    return out
+
+
 def mixers_under_a_mesh(dev=None, seed: int = 0, dryruns=None) -> dict:
     """Phase 14: the MoE, RWKV6 and Mamba2 mixers on DTensors on a
     one-process NCCL group and a one-device mesh (serving, memory,
@@ -3990,6 +4164,9 @@ def mixers_under_a_mesh(dev=None, seed: int = 0, dryruns=None) -> dict:
         phase("14.5 the slot-split decode: kernel with lse per slot range, "
               "merged")
         out["slot_decode"] = slot_split_decode(dev, seed)
+        phase("14.6 the head_dim-split decode: partial scores per slice, "
+              "summed, softmax and P V per slice")
+        out["hd_decode"] = hd_split_decode(dev, seed)
         phase("14.4 the dry-runs")
         out["dryrun"] = finish_dryruns(procs, started)
     finally:
@@ -4544,6 +4721,10 @@ def main(argv=None) -> int:
             if n:
                 r["launches_by_path"][run["path"]] = n
                 r["launches"] += n
+    hd_rows = mixers["hd_decode"].pop("rows")
+    at = next(i for i, r in enumerate(rows)
+              if r["name"] == "decode_attention") + 1
+    rows[at:at] = hd_rows
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"mixers": mixers}))
 

@@ -106,6 +106,16 @@ DEVICE_PROGRAMS: tuple[DeviceProgram, ...] = (
     DeviceProgram("kernels/decode_attention/ops.py", ("decode_attention",),
                   (f"{_K}/decode_attention/kernel.py:65",),
                   "dispatcher"),
+    DeviceProgram("kernels/decode_attention_hd/kernel.py",
+                  ("decode_scores_hd", "decode_softmax_pv_hd", "_check_pair"),
+                  (f"{_K}/decode_attention/kernel.py:65",
+                   f"{_K}/decode_attention/kernel.py:79"),
+                  "launchers of csrc/decode_attention_hd.cu: the decode on a "
+                  "cache split on head_dim, one rank's slice"),
+    DeviceProgram("kernels/decode_attention_hd/ops.py",
+                  ("decode_scores_hd", "decode_softmax_pv_hd"),
+                  (f"{_K}/decode_attention/kernel.py:65",),
+                  "dispatchers"),
     DeviceProgram("kernels/ssm_scan/kernel.py", ("ssm_scan", "_check"),
                   (f"{_K}/ssm_scan/kernel.py:62",
                    f"{_K}/ssm_scan/kernel.py:75"),
@@ -149,10 +159,14 @@ DEVICE_PROGRAMS: tuple[DeviceProgram, ...] = (
                   ("src/repro/serving/engine.py:44",), "one decode step"),
     DeviceProgram("models/layers.py",
                   ("_sharded_decode", "_decode_attention",
-                   "merge_decode_parts", "decode_key_positions"),
+                   "merge_decode_parts", "decode_key_positions",
+                   "_hd_split_decode", "hd_slice_scores",
+                   "hd_slice_attend", "_all_reduce"),
                   ("src/repro/serving/engine.py:44",),
                   "a decode step's attention, on a cache split on its "
-                  "slots: each rank's part and the merge"),
+                  "slots (each rank's part and the merge) or on head_dim "
+                  "(each rank's partial scores, their all-reduce, its "
+                  "softmax and P V)"),
     DeviceProgram("serving/engine.py", ("Engine.generate",),
                   ("src/repro/serving/engine.py:42",
                    "src/repro/serving/engine.py:44"),

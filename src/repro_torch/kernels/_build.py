@@ -22,8 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "rwkv6_wkv", "rwkv6_wkv_bwd", "ssm_scan", "ssm_scan_bwd",
-           "int8_grouped_matmul", "int8_grouped_matmul_wgmma")
+           "decode_attention_hd", "rwkv6_wkv", "rwkv6_wkv_bwd", "ssm_scan",
+           "ssm_scan_bwd", "int8_grouped_matmul", "int8_grouped_matmul_wgmma")
 HEADERS = ("common.cuh", "hopper.cuh", "scan.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")

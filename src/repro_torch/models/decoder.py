@@ -476,16 +476,22 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             prefix: torch.Tensor | None = None, max_len: int | None = None,
-            *, use_kernels: bool = True):
+            *, use_kernels: bool = True, prefer_hd: bool = False):
     """Process the prompt: tokens [B, T] (codebook tokens [B, T, nq]) after
     an optional prefix of embeddings [B, P, d_model], which takes cache
     positions 0..P-1. Returns (last-position logits [B, 1, V] or
-    [B, 1, nq, V], filled cache)."""
+    [B, 1, nq, V], filled cache). On DTensor parameters the cache is
+    placed by the sharding rules, `prefer_hd` as `cache_specs` takes it
+    (the dry-run's `kvhd`): an attention cache whose KV heads do not
+    divide "model" is split there on head_dim rather than on its slots.
+    No serving path sets `prefer_hd`; it is there for the mesh tests and
+    `tools/mesh_decode.py --kvhd`, which prefill into such a cache."""
     B = tokens.shape[0]
     T = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
     cache = init_cache(cfg, B, max_len or T, tokens.device)
     if is_dtensor(params["embed"]):
-        cache = distribute_cache(cache, params["embed"].device_mesh)
+        cache = distribute_cache(cache, params["embed"].device_mesh,
+                                 prefer_hd=prefer_hd)
     x = _batch_layout(_embed(params, cfg, tokens, prefix))
     h = _run_layers(params, cfg, x, cache, 0, use_kernels)
     return _logits(params, cfg, h[:, -1:]), cache

@@ -24,7 +24,11 @@ positions), else whole KV heads where they divide, else replicated, since a
 kernel needs whole heads. A decode cache that the rules split on its slots
 (KV heads that do not divide `model`) stays split: each rank attends over
 its own slots and the partial softmaxes are merged by their log-sum-exps
-(`merge_decode_parts`), as GSPMD runs the reference's decode there.
+(`merge_decode_parts`), as GSPMD runs the reference's decode there. A
+decode cache that the rules split on head_dim (`prefer_hd`) stays split
+too: each rank scores its own lanes (`kernels.decode_attention_hd`), the
+partial scores are all-reduced, and each rank runs the softmax and P V on
+its lanes; only the step's output is gathered back to whole heads.
 """
 from __future__ import annotations
 
@@ -37,6 +41,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import is_dtensor
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.decode_attention.ref import decode_attention_ref
+from ..kernels.decode_attention_hd.ops import (decode_scores_hd,
+                                               decode_softmax_pv_hd)
+from ..kernels.decode_attention_hd.ref import (decode_scores_hd_ref,
+                                               decode_softmax_pv_hd_ref)
 from ..kernels.flash_attention.ops import flash_attention
 from ..parallel.sharding import batch_spec, to_placements
 from .config import ModelConfig
@@ -385,22 +393,35 @@ def _sharded_decode(q, kc, vc, pos: int, k_pos, window: int,
     """`_decode_attention` on a DTensor q and cache, rank by rank. Over a
     mesh dim that splits the cache's slots (dim 1), q is replicated, each
     rank attends over its own slots with their key positions, and the
-    parts are merged there (`merge_decode_parts`); no rank gathers the
-    cache."""
+    parts are merged there (`merge_decode_parts`). Over a mesh dim that
+    splits the cache's head_dim (dim 3), q is split there too (a local
+    slice), each rank scores its own lanes, the partial scores are
+    all-reduced in f32, and each rank runs the softmax and P V on its
+    lanes (`_hd_split_decode`); the output's lanes are then gathered to
+    whole heads, the layout of `_flat_heads`. No rank gathers the cache."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = q.device_mesh
     qp, kvp, _ = _placements(mesh, q.shape[0], kc.shape[2])
     slot_dims = tuple(i for i, p in enumerate(kc.placements)
                       if p.is_shard(1))
-    qp = tuple(Replicate() if i in slot_dims else p for i, p in enumerate(qp))
-    kvp = tuple(Shard(1) if i in slot_dims else p
-                for i, p in enumerate(kvp))
+    hd_dims = tuple(i for i, p in enumerate(kc.placements) if p.is_shard(3))
+    qp_local = tuple(Replicate() if i in slot_dims else
+                     Shard(3) if i in hd_dims else p
+                     for i, p in enumerate(qp))
+    kvp = tuple(Shard(1) if i in slot_dims else Shard(3) if i in hd_dims
+                else p for i, p in enumerate(kvp))
     if slot_dims:
         k_pos = decode_key_positions(kc.shape[1], pos, window, k_pos.device,
                                      _shard_start(kc, 1),
                                      kc.to_local().shape[1])
+    # the whole head's scale (q is the global DTensor here, its last dim
+    # cfg.hd), never that of a rank's slice of head_dim
+    scale = q.shape[-1] ** -0.5
 
     def fn(q, kc, vc):
+        if hd_dims:
+            return _hd_split_decode(q, kc, vc, pos, k_pos, scale,
+                                    use_kernels, mesh, hd_dims)
         if not slot_dims:
             return _decode_attention(q, kc, vc, pos, k_pos, window,
                                      use_kernels)
@@ -408,7 +429,44 @@ def _sharded_decode(q, kc, vc, pos: int, k_pos, window: int,
                                    use_kernels, return_lse=True)
         return merge_decode_parts(o, lse, mesh=mesh,
                                   mesh_dims=slot_dims).to(q.dtype)
-    return _local_map(fn, (qp,), (qp, kvp, kvp), mesh)(q, kc, vc)
+    out = _local_map(fn, (qp_local,), (qp_local, kvp, kvp), mesh)(q, kc, vc)
+    return out.redistribute(mesh, qp) if hd_dims else out
+
+
+def _hd_split_decode(q, kc, vc, pos: int, k_pos, scale: float,
+                     use_kernels: bool, mesh, hd_dims: tuple[int, ...]):
+    """One rank's part of a decode over a cache split on head_dim: q
+    [B,1,H,hl], kc, vc [B,S,KV,hl] its lanes. Its partial scores
+    (`hd_slice_scores`) summed over `hd_dims` of `mesh` in f32, then its
+    lanes of the output (`hd_slice_attend`). Returns [B,1,H,hl] in v's
+    dtype."""
+    s = _all_reduce(hd_slice_scores(q, kc, use_kernels), "sum", mesh,
+                    hd_dims)
+    return hd_slice_attend(s, vc, pos, k_pos, scale, use_kernels)
+
+
+def hd_slice_scores(q, kc, use_kernels: bool = True) -> torch.Tensor:
+    """The partial scores [B,KV,G,S] f32 of one slice of head_dim's lanes:
+    q [B,1,H,hl] and the cache's kc [B,S,KV,hl], as a rank holds them
+    where the cache is split on head_dim. The kernel on CUDA tensors
+    (`use_kernels`), else its plain version."""
+    B, _, H, hl = q.shape
+    KV = kc.shape[2]
+    return (decode_scores_hd if use_kernels else decode_scores_hd_ref)(
+        q.reshape(B, KV, H // KV, hl), kc.transpose(1, 2))
+
+
+def hd_slice_attend(s, vc, pos: int, k_pos, scale: float,
+                    use_kernels: bool = True) -> torch.Tensor:
+    """One slice's lanes of the decode output [B,1,H,hl], in vc's dtype:
+    the masked softmax of s [B,KV,G,S] f32, the scores summed over every
+    slice, at the whole head's `scale`, weighing the slice's lanes of vc
+    [B,S,KV,hl]. The kernel on CUDA tensors (`use_kernels`), else its
+    plain version."""
+    B, KV, G, _ = s.shape
+    o = (decode_softmax_pv_hd if use_kernels else decode_softmax_pv_hd_ref)(
+        s, vc.transpose(1, 2), k_pos, pos, scale)
+    return o.reshape(B, 1, KV * G, vc.shape[-1])
 
 
 def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,

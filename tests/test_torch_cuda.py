@@ -22,6 +22,10 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention_hd.ops import (
+    decode_scores_hd, decode_softmax_pv_hd)
+from repro_torch.kernels.decode_attention_hd.ref import (
+    decode_scores_hd_ref, decode_softmax_pv_hd_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
@@ -389,6 +393,129 @@ def test_decode_kernel_on_two_streams_at_once(dev):
         want = decode_attention_ref(*_f32(*case), k_pos, S - 1)
         for got in out:
             _assert_matches(got, want)
+
+
+def _hd_slices(x, n: int):
+    """The n slices of head_dim (the last axis) that n ranks hold."""
+    hl = x.shape[-1] // n
+    return [x[..., i * hl:(i + 1) * hl] for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,KV,S", [(2, 3, 777), (33, 32, 300), (1, 1, 5)],
+                         ids=["runs", "one_run", "short"])
+@pytest.mark.parametrize("G", [1, 7, 8, 16])
+@pytest.mark.parametrize("hl", [4, 8, 12, 16, 24, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_hd_pair_matches_plain(dev, B, KV, S, G, hl, dtype):
+    """Each kernel of the head_dim-split pair against its plain version on
+    one slice of hl lanes (4 and 12: read in 4-lane pieces, 8-byte loads
+    in bf16), read through the model's [B,S,KV,hl] layout:
+    the scores (f32 sums of exact products) at 2e-5; the softmax and P V,
+    on the plain scores, under the attention tolerances, over a flat map,
+    a ring with empty slots and a map with no admissible slot (zeros). One
+    run per group (33 x 32 groups), many runs merged, and S below a tile."""
+    from repro_torch.kernels.decode_attention_hd import kernel as hk
+    rng = np.random.default_rng(B * 100 + G * 10 + hl)
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hl)).astype(np.float32)
+                         ).to(dev, dtype)
+    k = _model_layout(rng, B, S, KV, hl, dtype, dev)
+    v = _model_layout(rng, B, S, KV, hl, dtype, dev)
+    n0 = (decode_scores_hd.launches, decode_softmax_pv_hd.launches)
+    s = decode_scores_hd(q, k)
+    torch.testing.assert_close(s, decode_scores_hd_ref(q, k), atol=F32_TOL,
+                               rtol=F32_TOL)
+    scale = (hl * 4) ** -0.5        # a head of 4 such slices
+    pos = S - S // 4
+    for name, k_pos in _lse_maps(S, pos).items():
+        kp = torch.from_numpy(k_pos.astype(np.int32)).to(dev)
+        s_in = s * 3.0                  # scores of several slices' size
+        got = decode_softmax_pv_hd(s_in, v, kp, pos, scale)
+        want = decode_softmax_pv_hd_ref(s_in, v.float(), kp, pos, scale)
+        assert got.dtype == dtype and not torch.isnan(got).any(), name
+        if name == "empty":
+            assert torch.equal(got, torch.zeros_like(got))
+        else:
+            _assert_matches(got, want)
+    assert (decode_scores_hd.launches, decode_softmax_pv_hd.launches) == (
+        n0[0] + 1, n0[1] + 3)
+    assert (hk.split(B, KV, S, 132)[0] == 1) == (B * KV > 1000 or S < 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("KV,G,hd,n", [(8, 8, 128, 4), (8, 8, 128, 16),
+                                       (2, 7, 64, 16), (24, 1, 64, 16)],
+                         ids=["qwen2-72b-4", "qwen2-72b-16", "qwen2-0.5b-16",
+                              "musicgen-medium-16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_hd_slices_equal_the_whole_head_kernel(dev, KV, G, hd, n,
+                                                      dtype):
+    """A config's decode group (KV heads of G queries, head_dim hd) over a
+    cache of 2,048 slots cut on head_dim into n slices of hd / n lanes, as
+    a mesh's "model" ranks hold them (4 lanes for qwen2-0.5b and
+    musicgen-medium on 16): each slice's partial scores summed (what the
+    all-reduce sums), then each slice's softmax and P V at the whole
+    head's scale, against the whole-head decode kernel and its plain
+    version in f32, late (every slot written) and early."""
+    from repro_torch.models.layers import decode_key_positions
+    rng = np.random.default_rng(n + hd + KV)
+    B, S = 4, 2048
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+                         ).to(dev, dtype)
+    k = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    v = _model_layout(rng, B, S, KV, hd, dtype, dev)
+    n0 = (decode_scores_hd.launches, decode_softmax_pv_hd.launches)
+    for pos in (S - 1, S // 3):
+        kp = decode_key_positions(S, pos, 0, dev)
+        s = sum(decode_scores_hd(qs, ks) for qs, ks in zip(_hd_slices(q, n),
+                                                           _hd_slices(k, n)))
+        got = torch.cat([decode_softmax_pv_hd(s, vs, kp, pos, hd ** -0.5)
+                         for vs in _hd_slices(v, n)], -1)
+        want = decode_attention_ref(*_f32(q, k, v), kp, pos)
+        _assert_matches(got, want)
+        whole = decode_attention(q, k, v, kp, pos)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, whole, atol=F32_TOL,
+                                       rtol=F32_TOL)
+        else:
+            _assert_matches(got, whole.float())
+    assert (decode_scores_hd.launches, decode_softmax_pv_hd.launches) == (
+        n0[0] + 2 * n, n0[1] + 2 * n)
+
+
+@pytest.mark.cuda
+def test_decode_hd_pair_refuses_what_it_cannot_read(dev):
+    """A misaligned k or v (by 16 bytes for 8-lane slices, by 8 for 4-lane
+    bf16 ones), a slice that is not a multiple of 4 lanes or wider than
+    64, a group above 16, CPU scores on the card: the wrappers raise and
+    launch nothing."""
+    n0 = (decode_scores_hd.launches, decode_softmax_pv_hd.launches)
+    bf16 = torch.bfloat16
+    q = torch.zeros(1, 2, 4, 8, device=dev, dtype=bf16)
+    k = torch.zeros(1, 2, 64, 8, device=dev, dtype=bf16)
+    s = torch.zeros(1, 2, 4, 64, device=dev)
+    kp = torch.arange(64, dtype=torch.int32, device=dev)
+    bad = torch.zeros(2 * 64 * 8 + 1, device=dev, dtype=bf16)[1:].view(
+        1, 2, 64, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_scores_hd(q, bad)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_softmax_pv_hd(s, bad, kp, 63, 0.1)
+    bad4 = torch.zeros(2 * 64 * 4 + 1, device=dev, dtype=bf16)[1:].view(
+        1, 2, 64, 4)
+    with pytest.raises(ValueError, match="8-byte"):
+        decode_scores_hd(q.new_zeros(1, 2, 4, 4), bad4)
+    with pytest.raises(ValueError, match="8-byte"):
+        decode_softmax_pv_hd(s, bad4, kp, 63, 0.1)
+    for lanes in (2, 6, 72):
+        with pytest.raises(ValueError, match="lanes"):
+            decode_scores_hd(q.new_zeros(1, 2, 4, lanes),
+                             k.new_zeros(1, 2, 64, lanes))
+    with pytest.raises(ValueError, match="group size"):
+        decode_scores_hd(q.new_zeros(1, 2, 17, 8), k)
+    with pytest.raises(ValueError, match="on cpu"):
+        decode_softmax_pv_hd(s, k.cpu(), kp, 63, 0.1)
+    assert (decode_scores_hd.launches, decode_softmax_pv_hd.launches) == n0
 
 
 @pytest.mark.cuda

@@ -685,7 +685,9 @@ def test_split_layer_stack_is_gathered_once_per_step():
 
 # decode_32k at 2 layers on the single-pod production mesh (16x16): the
 # port's dry-run row on 256 fake ranks, the reference's HLO count on 256
-# host devices (its `run_one` decode branch at the cut depth).
+# host devices (its `run_one` decode branch at the cut depth); OPTS the
+# dry-run's options, PREFER_HD the reference's `cache_specs` flag (the
+# `kvhd` option).
 SLOT_DECODE_ARCHS = ("kimi-k2-1t-a32b", "qwen2-72b")
 
 _PORT_DECODE = """
@@ -700,9 +702,14 @@ _PORT_DECODE = """
     out = {}
     for arch in ARCHS:
         cfg = dataclasses.replace(get_config(arch), n_layers=2)
-        r = dryrun.row(arch, case.name, False, cfg, case, mesh)
+        r = dryrun.row(arch, case.name, False, cfg, case, mesh, OPTS)
+        S = case.seq_len if cfg.sliding_window == 0 else min(
+            case.seq_len, cfg.sliding_window)
         out[arch] = dict(flops=r["hlo_flops_per_device"],
-                         collective_bytes=r["collective_bytes_per_device"])
+                         collective_bytes=r["collective_bytes_per_device"],
+                         all_gather=r["collectives"].get("all-gather", 0),
+                         layer_key_cache=case.global_batch // 16 * S
+                         * cfg.n_kv_heads * cfg.hd * 2)
     print(json.dumps(out))
 """
 
@@ -724,7 +731,8 @@ _REF_DECODE = """
         p_shard = shd.to_shardings(shd.param_specs(p_shapes, mesh), mesh)
         inputs = input_specs(cfg, case)
         cache_shard = shd.to_shardings(
-            shd.cache_specs(inputs["cache"], mesh), mesh)
+            shd.cache_specs(inputs["cache"], mesh, prefer_hd=PREFER_HD),
+            mesh)
         tok_shard = jax.sharding.NamedSharding(
             mesh, shd.batch_spec(mesh, inputs["tokens"].shape))
         with mesh:
@@ -751,15 +759,44 @@ def test_slot_split_decode_matches_reference():
     "model" rank, each rank attending over all of it, counts 2.50x and
     4.95x the reference's flops, and at kimi-k2 1.36x its collective
     bytes."""
+    _decode_matches_reference((), False)
+
+
+def _decode_matches_reference(opts: tuple, prefer_hd: bool) -> dict:
+    """decode_32k of `SLOT_DECODE_ARCHS` in the port's dry-run with `opts`
+    and in the reference's program with `prefer_hd`: the port's flops
+    within 1 % of the reference's, its collective bytes at most the
+    reference's. Returns the port's counts by arch."""
     pytest.importorskip("jax")
     archs = repr(SLOT_DECODE_ARCHS)
-    got = _last_json(_run(_PORT_DECODE.replace("ARCHS", archs)))
-    ref = _last_json(_run_ref(_REF_DECODE.replace("ARCHS", archs), 256))
+    got = _last_json(_run(_PORT_DECODE.replace("ARCHS", archs).replace(
+        "OPTS", repr(opts))))
+    ref = _last_json(_run_ref(_REF_DECODE.replace("ARCHS", archs).replace(
+        "PREFER_HD", repr(prefer_hd)), 256))
     for arch in SLOT_DECODE_ARCHS:
         g, r = got[arch], ref[arch]
         assert r["flops"] > 1e9 and g["collective_bytes"] > 0, (arch, g, r)
         assert abs(g["flops"] / r["flops"] - 1) <= 0.01, (arch, g, r)
         assert g["collective_bytes"] <= r["collective_bytes"], (arch, g, r)
+    return got
+
+
+def test_hd_split_decode_matches_reference():
+    """The same decode_32k rows with the cache split on head_dim (the
+    `kvhd` option; the reference's `prefer_hd`): 8 KV heads do not divide
+    the 16 "model" ranks, so each rank holds 8 of the 128 lanes of every
+    head. Each rank scores its own lanes, the partial scores are
+    all-reduced (B x H x S f32 a layer), and each rank runs the softmax
+    and P V on its lanes: the port's flops are within 1 % of the
+    reference's and its collective bytes at most the reference's.
+    Gathering the cache to every "model" rank, each rank attending over
+    all of it, counted 4.95x (qwen2-72b) and 2.50x (kimi-k2) the
+    reference's flops; here the all-gathers stay below one layer's
+    [B, S, KV, hd] key cache shard of a rank's batch rows."""
+    got = _decode_matches_reference(("kvhd",), True)
+    for arch in SLOT_DECODE_ARCHS:
+        assert got[arch]["all_gather"] < got[arch]["layer_key_cache"], (
+            arch, got[arch])
 
 
 @pytest.fixture(scope="module")

@@ -230,6 +230,18 @@ INJECT = {
     "merge_decode_parts .item()": (
         "models/layers.py", "x/repro_torch/models/layers.py",
         "    lse = lse.float()\n", "    n = lse.max().item()\n", "RPR402"),
+    "_hd_split_decode .item()": (
+        "models/layers.py", "x/repro_torch/models/layers.py",
+        "    return hd_slice_attend(s, vc, pos, k_pos, scale, use_kernels)\n",
+        "    n = s.max().item()\n", "RPR402"),
+    "hd_slice_attend .item()": (
+        "models/layers.py", "x/repro_torch/models/layers.py",
+        "    B, KV, G, _ = s.shape\n", "    n = s.max().item()\n", "RPR402"),
+    "decode_softmax_pv_hd launcher .item()": (
+        "kernels/decode_attention_hd/kernel.py",
+        "x/repro_torch/kernels/decode_attention_hd/kernel.py",
+        "    n_split, split_len = split(B, KV, S, _n_sm(v.device))\n",
+        "    n = k_pos.max().item()\n", "RPR402"),
     "_pdhg_block torch.float32": (
         "risk/solver.py", "x/repro_torch/risk/solver.py",
         "    tau = tau0 / omega[:, None]\n",

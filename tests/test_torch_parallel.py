@@ -167,6 +167,45 @@ def test_cache_specs_equal_reference(arch, mesh, prefer_hd):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_hd_split_cache_slices_fit_the_kernel_pair(arch, mesh):
+    """Every config's decode cache at B 128 and 32,768 positions under
+    `prefer_hd`: where the rules split an attention cache on head_dim,
+    the slice a "model" rank holds has lanes the hd-split pair takes
+    (`kernels.decode_attention_hd.kernel.LANES`), a group it takes, and a
+    [B,KV,S,hl] view of its contiguous [B,S,KV,hl] shard that it can
+    read in bf16 and f32. On 16x16 the split caches are the ones listed
+    (4 lanes where head_dim is 64: qwen2-0.5b, musicgen-medium)."""
+    from repro_torch.kernels._layout import aligned16
+    from repro_torch.kernels.decode_attention_hd import kernel as hk
+    cfg = get_config(arch)
+    stub = _stub(mesh)
+    n_model = stub.shape["model"]
+    cache = decoder.init_cache(cfg, 128, 32_768, "meta")
+    specs = _flat_specs(sharding.cache_specs(cache, stub, prefer_hd=True))
+    lanes = set()
+    for path, leaf in _flat(cache).items():
+        # the attention caches: k and v, [L, B, S, KV, hd]
+        if path[-1] not in ("0", "1") or specs[path][4] != "model":
+            continue
+        L, Bc, S, KV, hd = leaf.shape
+        hl = hd // n_model
+        lanes.add(hl)
+        assert hl in hk.LANES, (path, hl)
+        assert 0 < cfg.n_heads // KV <= hk.MAX_GROUP, path
+        b_local = Bc // sharding.mesh_axis_size(stub, specs[path][1])
+        view = ((b_local, KV, S, hl), (S * KV * hl, hl, KV * hl, 1))
+        for dtype in (torch.bfloat16, torch.float32):
+            assert aligned16(*view, dtype.itemsize, 0,
+                             hk._align(hl, dtype)), (path, dtype)
+    if mesh == "16x16":
+        want = {"qwen2-0.5b": {4}, "musicgen-medium": {4}, "qwen2-1.5b": {8},
+                "qwen2-72b": {8}, "kimi-k2-1t-a32b": {8},
+                "llama4-scout-17b-a16e": {8}, "internvl2-26b": {8}}
+        assert lanes == want.get(arch, set())
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
 def test_batch_spec_equals_reference(mesh):
     _, ref_sharding = _ref()
     for shape in [(256, 4096), (32, 32_768), (128, 1), (1, 524_288),
@@ -440,9 +479,10 @@ def test_sharded_decoder_equals_reference(tmp_path, model, kv):
                                        err_msg=arch)
 
 
-def _slot_decode_worker(rank, world, store, inp, out):
+def _slot_decode_worker(rank, world, store, inp, out, prefer_hd=False):
     """Prefill and 3 decode steps of each case of `SLOT_CASES` on a (1, 4)
-    mesh, whose "model" axis splits the cache's slots."""
+    mesh, whose "model" axis splits the cache's slots, or with
+    `prefer_hd` its head_dim."""
     _init(rank, world, store)
     from torch.distributed.tensor import DTensor
 
@@ -461,24 +501,28 @@ def _slot_decode_worker(rank, world, store, inp, out):
         weights = _tree({k[2:]: v for k, v in data.items()
                          if k.startswith("p/")})
         sp = distribute_params(params_from_numpy(weights, cfg, "cpu"), mesh)
-        gathered, placements = [], []
+        gathered, reduced, placements = [], [], []
+        dim = 4 if prefer_hd else 2    # of [L, B, S, KV, hd]: hd or slots
         with torch.no_grad():
-            lg, cache = decoder.prefill(sp, cfg, toks, max_len=SLOT_MAX_LEN)
+            lg, cache = decoder.prefill(sp, cfg, toks, max_len=SLOT_MAX_LEN,
+                                        prefer_hd=prefer_hd)
             steps = [lg]
             for s, nt in enumerate(data["decode_tokens"]):
                 with OpCounter() as c:
                     lg, cache = decoder.decode_step(
                         sp, cfg, cache, torch.from_numpy(nt), T + s)
                 gathered.append(c.stats.collectives.get("all-gather", 0.0))
+                reduced.append(c.stats.collectives.get("all-reduce", 0.0))
                 steps.append(lg)
-                placements.append([  # dim 2 of [L, B, S, KV, hd]: slots
-                    [p.is_shard(2) for p in t.placements]
+                placements.append([
+                    [p.is_shard(dim) for p in t.placements]
                     for t in cache["layers"] if isinstance(t, DTensor)])
         res[f"logits_{name}"] = torch.stack([x.full_tensor() for x in steps])
         res[f"gathered_{name}"] = torch.tensor(gathered)
+        res[f"reduced_{name}"] = torch.tensor(reduced)
         res[f"placements_{name}"] = np.array(placements)
         res[f"slots_{name}"] = torch.tensor(
-            cache["layers"][0].to_local().shape[2])
+            cache["layers"][0].to_local().shape[dim])
     if rank == 0:
         np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
     dist.destroy_process_group()
@@ -490,19 +534,10 @@ SLOT_CASES = (("flat", 0), ("ring", 16))
 SLOT_MAX_LEN = 32
 
 
-def test_slot_split_decode_equals_reference(tmp_path):
-    """qwen2-1.5b smoke in f32, 2 KV heads, on 4 gloo ranks as (data,
-    model) = (1, 4): the heads do not divide "model", so the rules split
-    each cache on its slots, and each rank attends over its own and the
-    parts are merged by their log-sum-exps. A flat cache of 32 slots
-    after a 16-token prompt (during the 3 decode steps the fourth rank's
-    8 slots are all empty, the third's partly), and a ring of
-    `sliding_window` 16 slots, 4 a rank, that the decode steps wrap. The
-    prefill logits and 3 decode steps equal the reference's unsharded
-    ones at 1e-5; after every step both caches are still split on their
-    slots over "model", and no step all-gathers as many bytes as one
-    layer's whole key cache (the parent gathered both caches of every
-    layer at every step)."""
+def _split_decode_reference(tmp_path):
+    """The reference's unsharded prefill and 3 decode steps of each case
+    of `SLOT_CASES` (qwen2-1.5b smoke, 2 KV heads, f32), and the input
+    file of the gloo workers. Returns (want by case, input path, B)."""
     jax, _ = _ref()
     from repro.configs import get_config as ref_get_config
     from repro.models import decoder as ref_decoder
@@ -525,9 +560,27 @@ def test_slot_split_decode_equals_reference(tmp_path):
                                                 dec[s], T + s)
             steps.append(np.asarray(lg))
         want[name] = np.stack(steps)
-    inp, out = tmp_path / "in.npz", tmp_path / "out.npz"
+    inp = tmp_path / "in.npz"
     np.savez(inp, tokens=toks, decode_tokens=dec,
              **{"p/" + "/".join(p): a for p, a in _flat(params).items()})
+    return want, inp, B
+
+
+def test_slot_split_decode_equals_reference(tmp_path):
+    """qwen2-1.5b smoke in f32, 2 KV heads, on 4 gloo ranks as (data,
+    model) = (1, 4): the heads do not divide "model", so the rules split
+    each cache on its slots, and each rank attends over its own and the
+    parts are merged by their log-sum-exps. A flat cache of 32 slots
+    after a 16-token prompt (during the 3 decode steps the fourth rank's
+    8 slots are all empty, the third's partly), and a ring of
+    `sliding_window` 16 slots, 4 a rank, that the decode steps wrap. The
+    prefill logits and 3 decode steps equal the reference's unsharded
+    ones at 1e-5; after every step both caches are still split on their
+    slots over "model", and no step all-gathers as many bytes as one
+    layer's whole key cache (the parent gathered both caches of every
+    layer at every step)."""
+    want, inp, B = _split_decode_reference(tmp_path)
+    out = tmp_path / "out.npz"
     _spawn(_slot_decode_worker, 4, 4, str(tmp_path / "store"), str(inp),
            str(out))
     with np.load(out) as f:
@@ -545,6 +598,42 @@ def test_slot_split_decode_equals_reference(tmp_path):
         layer_k = B * S * cfg.n_kv_heads * cfg.hd * 4
         assert got[f"gathered_{name}"].max() < layer_k, (
             name, got[f"gathered_{name}"], layer_k)
+
+
+def test_hd_split_decode_equals_reference(tmp_path):
+    """The same model, mesh and cases with the cache placed under
+    `prefer_hd` (the dry-run's `kvhd`): the 2 KV heads do not divide the
+    4 "model" ranks, so the rules split each cache on head_dim, 8 of the
+    32 lanes a rank. Each rank scores its own lanes, the partial scores
+    are all-reduced, and each rank runs the softmax and P V on its lanes
+    (the global head's scale). The prefill logits and 3 decode steps equal
+    the reference's unsharded ones at 1e-5, flat and ring; after every
+    step both caches are still split on head_dim over "model" (each
+    rank's slice written in place); no step all-gathers as many bytes as
+    one layer's whole key cache, and each step all-reduces at least the
+    partial scores of every layer (B x H x S f32 a layer)."""
+    want, inp, B = _split_decode_reference(tmp_path)
+    out = tmp_path / "out.npz"
+    _spawn(_slot_decode_worker, 4, 4, str(tmp_path / "store"), str(inp),
+           str(out), True)
+    with np.load(out) as f:
+        got = dict(f)
+    cfg = _smoke_cfg(2)
+    for name, window in SLOT_CASES:
+        np.testing.assert_allclose(got[f"logits_{name}"], want[name],
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+        S = min(SLOT_MAX_LEN, window) if window else SLOT_MAX_LEN
+        assert int(got[f"slots_{name}"]) == cfg.hd // 4, name
+        for step in got[f"placements_{name}"]:
+            assert len(step) == 2, name                    # k and v
+            for pl in step:
+                assert list(pl) == [False, True], (name, pl)   # "model"
+        layer_k = B * S * cfg.n_kv_heads * cfg.hd * 4
+        assert got[f"gathered_{name}"].max() < layer_k, (
+            name, got[f"gathered_{name}"], layer_k)
+        scores = cfg.n_layers * B * cfg.n_heads * S * 4
+        assert got[f"reduced_{name}"].min() >= scores, (
+            name, got[f"reduced_{name}"], scores)
 
 
 # The sharded loss head: (case, arch, vocabulary) of the smoke configs in

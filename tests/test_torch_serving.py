@@ -124,6 +124,9 @@ def test_every_port_module_imports_without_jax():
               "repro_torch.kernels.int8_grouped_matmul.kernel",
               "repro_torch.kernels.int8_grouped_matmul.ops",
               "repro_torch.kernels.int8_grouped_matmul.ref",
+              "repro_torch.kernels.decode_attention_hd.kernel",
+              "repro_torch.kernels.decode_attention_hd.ops",
+              "repro_torch.kernels.decode_attention_hd.ref",
               "repro_torch.launch.specs", "repro_torch.launch.dryrun",
               "repro_torch.launch.sweep", "repro_torch.analysis.op_stats",
               "repro_torch.analysis.roofline",
