@@ -3995,9 +3995,10 @@ def hd_split_decode(dev, seed) -> dict:
     against the whole-head decode kernel at the bf16 tolerances and the
     plain version in f32, at each of `HD_DECODE_POS`; each kernel against
     its own plain version on one slice. Then one slice's call of each
-    kernel, the pair, and the whole-head kernel over the whole cache (what
-    each "model" rank ran while the cache was gathered) timed as CUDA-graph
-    replays beside their bounds, and one slice's scores as one library
+    kernel (the softmax's each on summed scores of its own), the pair, and
+    the whole-head kernel over the whole cache (what each "model" rank ran
+    while the cache was gathered) timed as CUDA-graph replays beside their
+    bounds, and one slice's scores as one library
     call (`torch.matmul`, bf16 out). Returns the numbers and the pair's
     rows of the kernel table."""
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -4071,12 +4072,16 @@ def hd_split_decode(dev, seed) -> dict:
         decode_softmax_pv_hd_ref(s, vs[0].float(), k_pos, pos, scale))
 
     # Times at the late position: one slice's call of each kernel, each
-    # slice on its own inputs in turn (together past the 50 MB L2).
+    # slice on its own inputs in turn (together past the 50 MB L2); each
+    # softmax call on summed scores of its own, as each layer of a rank
+    # has its own, so no call finds the last one's scores in L2.
     item = q.element_size()
     sc_ms = time_ms([lambda i=i: hk.decode_scores_hd(qs[i], ks[i])
                      for i in range(n)])[0]
+    s_own = [s] + [s.clone() for _ in range(n - 1)]
     pv_ms = time_ms([lambda i=i: hk.decode_softmax_pv_hd(
-        s, vs[i], k_pos, pos, scale) for i in range(n)])[0]
+        s_own[i], vs[i], k_pos, pos, scale) for i in range(n)])[0]
+    del s_own
     whole_ms = time_ms([lambda: dk.decode_attention(q, kc, vc, k_pos,
                                                     pos)])[0]
     sc_lib = time_ms([lambda i=i: torch.matmul(qs[i], ks[i].transpose(-1, -2))

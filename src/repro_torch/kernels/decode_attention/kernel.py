@@ -115,7 +115,8 @@ def _merge_counters(device: torch.device, stream: int,
     group: zeros at rest, since the merging block resets its own. One
     buffer per device and stream handle, so calls that overlap on two
     streams never count each other's blocks, while calls on one stream,
-    which run in turn, share it. Made at the stream's first call (a call
+    which run in turn, share it (this kernel's and the head_dim-split
+    softmax kernel's alike). Made at the stream's first call (a call
     under CUDA-graph capture makes it on the capture stream) and grown
     only for a larger B * KV."""
     key = (device.index, stream)

@@ -12,6 +12,10 @@ of 8 lanes, or of 4 where hl is not a multiple of 8, and a piece's load
 needs its bytes' alignment, at most 16), allocates the outputs and the
 merge's workspace, picks the cut of the softmax's slots into runs, and
 launches each kernel on the current stream through its C entry point.
+The softmax kernel merges its runs in the same launch (the last block of
+a group to finish, counted in the int32 buffer per device and stream that
+the whole-head decode kernel uses too, and that the kernel leaves at
+zero).
 """
 from __future__ import annotations
 
@@ -22,13 +26,14 @@ import torch
 
 from .. import _build
 from .._layout import check_aligned
+from ..decode_attention.kernel import _merge_counters
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LANES = tuple(range(4, 65, 4))   # head_dim lanes a slice may hold
 MAX_GROUP = 16     # most query heads per KV head
-TILE = 128         # slots per tile of the softmax kernel (PTS in the source)
+TILE = 128         # slots per tile of the softmax kernel (TILE in the source)
 SCORE_BLOCK = 256  # slots per block of the scores kernel (NTH)
-RUNS_PER_SM = 8    # runs (blocks) per SM the cut aims at
+RUNS_PER_SM = 4    # runs (blocks) per SM the cut aims at: 4 fit an SM
 MAX_SPLIT = 64     # most runs per (b, kv) group (MAX_SPLIT in the source)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
@@ -40,8 +45,8 @@ def _entry(name: str):
     if name == "decode_scores_hd_fwd":
         fn.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _I, *([_L] * 12), _P]
     else:
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _F, *([_L] * 12), _P]
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _F, *([_L] * 12), _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -158,15 +163,18 @@ def decode_softmax_pv_hd(s: torch.Tensor, v: torch.Tensor,
     check_aligned("decode_softmax_pv_hd", _align(hl, v.dtype), v=v)
     n_split, split_len = split(B, KV, S, _n_sm(v.device))
     out = torch.empty((B, KV, G, hl), dtype=v.dtype, device=v.device)
-    ws = (torch.empty(workspace_floats(B, KV, G, hl, n_split),
-                      dtype=torch.float32, device=v.device)
-          if n_split > 1 else None)
     stream = torch.cuda.current_stream(v.device).cuda_stream
+    ws = cnt = None
+    if n_split > 1:
+        ws = torch.empty(workspace_floats(B, KV, G, hl, n_split),
+                         dtype=torch.float32, device=v.device)
+        cnt = _merge_counters(v.device, stream, B * KV)
     with torch.cuda.device(v.device):
         err = _entry("decode_softmax_pv_hd_fwd")(
             DTYPES[v.dtype], s.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), k_pos.data_ptr(), pos, B,
-            KV, G, S, hl, n_split, split_len, float(scale), *s.stride(),
+            None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), k_pos.data_ptr(), pos,
+            B, KV, G, S, hl, n_split, split_len, float(scale), *s.stride(),
             *v.stride(), *out.stride(), stream)
     if err:
         raise RuntimeError(f"decode_softmax_pv_hd kernel launch failed: CUDA "

@@ -439,7 +439,8 @@ def test_decode_hd_pair_matches_plain(dev, B, KV, S, G, hl, dtype):
             _assert_matches(got, want)
     assert (decode_scores_hd.launches, decode_softmax_pv_hd.launches) == (
         n0[0] + 1, n0[1] + 3)
-    assert (hk.split(B, KV, S, 132)[0] == 1) == (B * KV > 1000 or S < 128)
+    assert (hk.split(B, KV, S, 132)[0] == 1) == (
+        B * KV >= hk.RUNS_PER_SM * 132 or S <= hk.TILE)
 
 
 @pytest.mark.cuda
@@ -516,6 +517,65 @@ def test_decode_hd_pair_refuses_what_it_cannot_read(dev):
     with pytest.raises(ValueError, match="on cpu"):
         decode_softmax_pv_hd(s, k.cpu(), kp, 63, 0.1)
     assert (decode_scores_hd.launches, decode_softmax_pv_hd.launches) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hl", [(8, 8), (7, 4)],
+                         ids=["qwen2-72b", "qwen2-0.5b"])
+@pytest.mark.parametrize("late", [True, False], ids=["late", "early"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_hd_softmax_over_a_long_cache(dev, G, hl, late, dtype):
+    """The softmax and P V over a 32,768-slot flat cache at B 1 (64 runs
+    of 512 slots a group, merged in the launch), for qwen2-72b's group
+    of 8 lanes and qwen2-0.5b's of 4, against the plain version under
+    the attention tolerances: at the last position, and at an early one
+    where all runs but the first two have no admissible slot."""
+    from repro_torch.kernels.decode_attention_hd import kernel as hk
+    from repro_torch.models.layers import decode_key_positions
+    B, KV, S = 1, 2, 32768
+    assert hk.split(B, KV, S, 132)[0] == 64
+    rng = np.random.default_rng(G * 10 + hl)
+    s = torch.from_numpy(4.0 * rng.normal(size=(B, KV, G, S)).astype(
+        np.float32)).to(dev)
+    v = _model_layout(rng, B, S, KV, hl, dtype, dev)
+    pos = S - 1 if late else 1000
+    kp = decode_key_positions(S, pos, 0, dev)
+    n0 = decode_softmax_pv_hd.launches
+    got = decode_softmax_pv_hd(s, v, kp, pos, 128 ** -0.5)
+    assert decode_softmax_pv_hd.launches == n0 + 1
+    assert got.dtype == dtype and not torch.isnan(got).any()
+    _assert_matches(got, decode_softmax_pv_hd_ref(s, v.float(), kp, pos,
+                                                  128 ** -0.5))
+
+
+@pytest.mark.cuda
+def test_decode_hd_softmax_merge_back_to_back_and_on_two_streams(dev):
+    """The softmax's runs merged in the launch (32 runs a group), called
+    20 times back to back on each of two streams whose calls overlap: the
+    arrival counters are reset by every call and kept per stream, so
+    every output equals the plain version's."""
+    from repro_torch.kernels.decode_attention_hd import kernel as hk
+    B, KV, G, S, hl = 2, 4, 8, 4096, 8
+    assert hk.split(B, KV, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0] > 1
+    rng = np.random.default_rng(34)
+    cases = [(torch.from_numpy(4.0 * rng.normal(size=(B, KV, G, S)).astype(
+        np.float32)).to(dev), _model_layout(rng, B, S, KV, hl,
+                                            torch.bfloat16, dev))
+             for _ in range(2)]
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev)
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(20):
+        for st, (s, v), out in zip(streams, cases, outs):
+            with torch.cuda.stream(st):
+                out.append(decode_softmax_pv_hd(s, v, k_pos, S - 1, 0.125))
+    torch.cuda.synchronize()
+    for (s, v), out in zip(cases, outs):
+        want = decode_softmax_pv_hd_ref(s, v.float(), k_pos, S - 1, 0.125)
+        for got in out:
+            _assert_matches(got, want)
 
 
 @pytest.mark.cuda

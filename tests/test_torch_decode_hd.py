@@ -161,3 +161,18 @@ def test_ops_take_the_plain_versions_on_the_cpu():
                                                    0.125))
     assert (decode_scores_hd.launches,
             decode_softmax_pv_hd.launches) == n0
+
+
+@pytest.mark.parametrize("n_sm", [1, 132])
+@pytest.mark.parametrize("B,KV", [(1, 1), (1, 2), (8, 2), (8, 8), (33, 32)])
+def test_softmax_cut_covers_every_slot_once(B, KV, n_sm):
+    """The softmax kernel's cut of S slots into runs (`kernel.split`):
+    runs of whole tiles, none empty, at most MAX_SPLIT of them, covering
+    every slot once, for S from below a tile to 32,768."""
+    from repro_torch.kernels.decode_attention_hd import kernel as hk
+    for S in (1, 5, 127, 128, 129, 300, 777, 1024, 4096, 32767, 32768):
+        n_split, split_len = hk.split(B, KV, S, n_sm)
+        assert 1 <= n_split <= hk.MAX_SPLIT, (S, n_split)
+        assert split_len > 0 and split_len % hk.TILE == 0, (S, split_len)
+        # every slot in exactly one run, and the last run not empty
+        assert (n_split - 1) * split_len < S <= n_split * split_len, S
